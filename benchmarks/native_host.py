@@ -21,8 +21,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from blur_algorithms_tpu.oracle import crc32c, reflect_101_np
-from blur_algorithms_tpu.utils import native
+from blur_algorithms.oracle import crc32c, reflect_101_np
+from blur_algorithms.utils import native
 
 
 def _time(fn, reps: int = 7) -> float:

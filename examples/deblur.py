@@ -43,9 +43,9 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from blur_algorithms_tpu.ops.plan import make_plan
-    from blur_algorithms_tpu.pallas_kernels.fused_blur import blur_fused
-    from blur_algorithms_tpu.utils import io
+    from blur_algorithms.ops.plan import make_plan
+    from blur_algorithms.ops.fused import blur_fused
+    from blur_algorithms.utils import io
 
     img = io.read_image(args.image)
     h, w = img.shape[:2]
@@ -74,7 +74,7 @@ def main() -> int:
         return x - args.lr * g, val
 
     if args.wiener:
-        from blur_algorithms_tpu.models import wiener_deconvolve
+        from blur_algorithms.models import wiener_deconvolve
 
         x = wiener_deconvolve(observed, args.sigma, balance=args.balance)
     else:

@@ -18,7 +18,7 @@ API:
 
 One ``BlurPipeline`` is cached per (sigma, engine, kernel); concurrent
 requests serialize their DISPATCH around the device via a lock (JAX
-dispatch is async — the lock covers enqueue, not completion, so the chip
+dispatch is async — the lock covers enqueue, not completion, so the device
 stays busy across requests), while a cold bucket's synchronous XLA compile
 runs before that lock so it never blocks other requests or ``/healthz``
 (which takes only the short cache lock). Each pipeline's bucketing keeps
@@ -40,8 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from blur_algorithms_tpu.models.pipeline import BlurPipeline
-from blur_algorithms_tpu.utils.io import decode_image, encode_image
+from blur_algorithms.models.pipeline import BlurPipeline
+from blur_algorithms.utils.io import decode_image, encode_image
 
 _WARMUP_NAMES = {"720p": (720, 1280), "1080p": (1080, 1920),
                  "1440p": (1440, 2560), "4k": (2160, 3840)}
@@ -163,8 +163,8 @@ def serve(port: int = 8700, warmup=(), sigma: float = 10.0,
           engine: str = "auto", kernel: str = "gaussian",
           started: threading.Event | None = None):
     # restarts reload compiled programs from disk instead of re-paying the
-    # warmup compiles (opt-out: BLUR_TPU_NO_COMPILE_CACHE=1)
-    from blur_algorithms_tpu.utils.cache import enable_persistent_cache
+    # warmup compiles
+    from blur_algorithms.utils.cache import enable_persistent_cache
 
     enable_persistent_cache()
     service = BlurService()

@@ -35,8 +35,8 @@ def main() -> int:
 
     import jax.numpy as jnp
 
-    from blur_algorithms_tpu.models import high_pass, unsharp_mask
-    from blur_algorithms_tpu.utils import io
+    from blur_algorithms.models import high_pass, unsharp_mask
+    from blur_algorithms.utils import io
 
     img = io.read_image(args.image)
     h, w = img.shape[:2]

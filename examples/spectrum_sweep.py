@@ -1,4 +1,4 @@
-"""Regenerate the reference's spectrum-analysis sweep, TPU-native.
+"""Regenerate the reference's spectrum-analysis sweep in JAX.
 
 The reference ships ~145 MB of images under ``test_images/spectrum_analysis``
 (blur radius 0-200 and noise 10-200 sweeps of spatial / frequency-domain
@@ -40,9 +40,9 @@ def main() -> int:
 
     import jax.numpy as jnp
 
-    from blur_algorithms_tpu import blur_u8
-    from blur_algorithms_tpu.models.pipeline import SpectrumAnalyzer
-    from blur_algorithms_tpu.utils import io
+    from blur_algorithms import blur_u8
+    from blur_algorithms.models.pipeline import SpectrumAnalyzer
+    from blur_algorithms.utils import io
 
     img = io.read_image(args.image)
     h, w = img.shape[:2]
@@ -69,7 +69,7 @@ def main() -> int:
 
     # the whole sigma sweep is ONE compiled dispatch (shared forward FFT,
     # per-sigma spectra batched) — the reference loop recompiles per sigma
-    from blur_algorithms_tpu import blur_multi_sigma_u8
+    from blur_algorithms import blur_multi_sigma_u8
 
     sweep = np.asarray(
         blur_multi_sigma_u8(

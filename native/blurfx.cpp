@@ -1,15 +1,15 @@
-// blurfx — native host-side runtime for blur_algorithms_tpu.
+// blurfx — native host-side runtime for blur_algorithms.
 //
-// TPU-native framing: XLA owns all device compute; what remains native is
-// the host data path that feeds the chip — exactly the roles the reference
+// XLA owns all device compute; what remains native is the host data path
+// that feeds the device — exactly the roles the reference
 // implements in C++ (SURVEY.md §2): planar<->interleaved layout conversion
 // with +0.5 rounding (Utils.hpp:159-210), reflect-101 border padding
 // (Utils.hpp:212-243), CRC-32 parity checksums (Source.cpp:15-56), and a
 // block-partitioned thread pool (hybrid_loop, Utils.hpp:16-55). These run
-// on the host CPU while the TPU computes, overlapping IO with device work.
+// on the host CPU while the device computes, overlapping IO with device work.
 //
 // Build: make -C native   (produces libblurfx.so; ctypes-loaded by
-// blur_algorithms_tpu/utils/native.py with a NumPy fallback when absent).
+// blur_algorithms/utils/native.py with a NumPy fallback when absent).
 
 #include <algorithm>
 #include <cmath>

@@ -4,10 +4,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blur_algorithms_tpu.ops.adjoint import blur_adjoint
-from blur_algorithms_tpu.ops.band_matmul import blur_band_matmul
-from blur_algorithms_tpu.ops.plan import make_plan
-from blur_algorithms_tpu.pallas_kernels.fused_blur import blur_fused
+from blur_algorithms.ops.adjoint import blur_adjoint
+from blur_algorithms.ops.band_matmul import blur_band_matmul
+from blur_algorithms.ops.plan import make_plan
+from blur_algorithms.ops.fused import blur_fused
 
 
 def test_adjoint_identity(rng):
@@ -65,7 +65,7 @@ def test_grad_through_blur_scalar_loss(rng):
 
 
 def test_jnp_engines_autodiff(rng):
-    from blur_algorithms_tpu.ops.fft_conv import blur_fft_tiles
+    from blur_algorithms.ops.fft_conv import blur_fft_tiles
 
     plan = make_plan((16, 20), 2.0)
     x = jnp.asarray(rng.random((16, 20)).astype(np.float32))
@@ -77,9 +77,9 @@ def test_adjointness_wide_radius(rng):
     """<blur(x), y> == <x, adjoint(y)> on the wide-kernel FFT adjoint path."""
     import jax
 
-    from blur_algorithms_tpu.ops.adjoint import blur_adjoint
-    from blur_algorithms_tpu.ops.fft_mxu import blur_fft_mxu
-    from blur_algorithms_tpu.ops.plan import make_plan
+    from blur_algorithms.ops.adjoint import blur_adjoint
+    from blur_algorithms.ops.fft_mxu import blur_fft_mxu
+    from blur_algorithms.ops.plan import make_plan
 
     h, w, sigma = 8, 2100, 400.0
     plan = make_plan((h, w), sigma)
@@ -110,7 +110,7 @@ def test_engine_grad_matrix(engine, rng):
     identity <A x, y> == <x, A^T y> verifies both that grad runs and that
     the VJP is the true adjoint.
     """
-    from blur_algorithms_tpu.api import blur
+    from blur_algorithms.api import blur
 
     x = jnp.asarray(rng.random((18, 22)).astype(np.float32))
     y = jnp.asarray(rng.random((18, 22)).astype(np.float32))
@@ -128,18 +128,17 @@ def test_engine_grad_matrix(engine, rng):
 
 
 def test_box_scan_grad_matches_band_autodiff(rng):
-    """The box-scan custom_vjp equals autodiff through the band engine."""
-    from blur_algorithms_tpu.ops.plan import make_plan
-    from blur_algorithms_tpu.pallas_kernels.box_blur_pallas import (
-        box_blur_pallas,
-    )
+    """Autodiff through the cumsum box scan equals autodiff through the
+    band engine on the folded taps."""
+    from blur_algorithms.ops.box_blur import box_blur_scan
+    from blur_algorithms.ops.plan import make_plan
 
     r, passes = 3, 2
     x = jnp.asarray(rng.random((20, 28)).astype(np.float32))
     ct = jnp.asarray(rng.random((20, 28)).astype(np.float32))
     plan = make_plan((20, 28), r, kernel="box_fast", box_passes=passes)
 
-    _, vjp_scan = jax.vjp(lambda v: box_blur_pallas(v, r, passes), x)
+    _, vjp_scan = jax.vjp(lambda v: box_blur_scan(v, r, passes), x)
     _, vjp_band = jax.vjp(lambda v: blur_band_matmul(v, plan), x)
     (g_scan,) = vjp_scan(ct)
     (g_band,) = vjp_band(ct)
@@ -149,9 +148,9 @@ def test_box_scan_grad_matches_band_autodiff(rng):
 
 
 def test_streamed_grad_matches_tiles_autodiff(rng):
-    from blur_algorithms_tpu.ops.fft_conv import blur_fft_tiles
-    from blur_algorithms_tpu.ops.plan import make_plan
-    from blur_algorithms_tpu.ops.streamed import blur_fft_tiles_streamed
+    from blur_algorithms.ops.fft_conv import blur_fft_tiles
+    from blur_algorithms.ops.plan import make_plan
+    from blur_algorithms.ops.streamed import blur_fft_tiles_streamed
 
     plan = make_plan((24, 40), 3.0)
     x = jnp.asarray(rng.random((24, 40)).astype(np.float32))

@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from blur_algorithms_tpu import Engine, blur, blur_u8, oracle
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms import Engine, blur, blur_u8, oracle
+from blur_algorithms.ops.plan import make_plan
 
 
 @pytest.fixture
@@ -57,7 +57,7 @@ def test_u8_auto_matches_oracle(rng):
 
 def test_opencv_anisotropic_parity(rng):
     cv2 = pytest.importorskip("cv2")
-    from blur_algorithms_tpu.ops.kernels import gaussian_window
+    from blur_algorithms.ops.kernels import gaussian_window
 
     img = (rng.random((72, 64, 3)) * 255).astype(np.uint8)
     sy, sx = 2.0, 7.0

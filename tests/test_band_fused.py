@@ -1,20 +1,19 @@
-"""Banded-matmul engine internals and the fused Pallas kernel."""
-
-import os
+"""Banded-matmul engine internals: the XLA band route and the fused
+engine's route choice."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import oracle
-from blur_algorithms_tpu.ops.band_matmul import (
+from blur_algorithms import oracle
+from blur_algorithms.ops.band_matmul import (
     band_block_matrix,
     blur_band_matmul,
     pick_block,
 )
-from blur_algorithms_tpu.ops.kernels import box_passes_kernel, gaussian_kernel
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms.ops.kernels import box_passes_kernel, gaussian_kernel
+from blur_algorithms.ops.plan import make_plan
 
 
 class TestBandMatrix:
@@ -71,7 +70,7 @@ class TestBoxFold:
 
     def test_fold_equals_sequential_passes(self, rng):
         """One effective-taps pass == 2 sequential reflect-101 box passes."""
-        from blur_algorithms_tpu.ops.box_blur import box_blur_planar
+        from blur_algorithms.ops.box_blur import box_blur_planar
 
         x = rng.random((30, 44)).astype(np.float32) * 255
         seq = np.asarray(box_blur_planar(jnp.asarray(x), 3, passes=2))
@@ -86,1372 +85,115 @@ class TestBoxFold:
         np.testing.assert_allclose(np.asarray(blur_band_matmul(x, plan)), x)
 
 
-class TestFusedKernel:
-    def test_multiblock_halo_interpret(self, rng, monkeypatch):
-        """Kernel support radius >> tile: the nh x nw neighbor-block path."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
+class TestBandBf16x3:
+    """The XLA band route in bf16x3: bf16 hi/lo products with float32
+    accumulation, within float rounding of the float64 direct oracle."""
 
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        x = rng.random((1, 24, 30)).astype(np.float32) * 255
-        plan = make_plan((24, 30), 6.0)  # radius 19 with 8x8 tiles -> 6x6 blocks
-        got = np.asarray(fused_blur.blur_fused(jnp.asarray(x), plan, tile=(8, 8)))
-        want = oracle.blur_direct(x, plan)
-        np.testing.assert_allclose(got, want, atol=1e-2)
-
-    def test_split_mode_interpret(self, rng, monkeypatch):
-        """Two-pass split form == single kernel == oracle (radius >> tile)."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        x = rng.random((1, 24, 30)).astype(np.float32) * 255
-        plan = make_plan((24, 30), 6.0)  # radius 19
-        got = np.asarray(
-            fused_blur._blur_fused_split(
-                jnp.asarray(x), plan, jax.lax.Precision.HIGHEST, out_u8=False
-            )
-        )
-        want = oracle.blur_direct(x, plan)
-        np.testing.assert_allclose(got, want, atol=1e-2)
-
-    def test_split_wins_only_at_wide_radii(self):
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        small = make_plan((2160, 3840), 10.0)
-        assert not fused_blur._split_wins(small, 1)
-        # round 3: the e32 split wins the WHOLE u8 blocked regime (the
-        # matched-radius measurement in benchmarks/wide_route_compare.json)
-        mid = make_plan((2160, 3840), 300.0)  # r ~ 997
-        assert fused_blur._split_wins(mid, 1, "int8")
-        wide = make_plan((2160, 3840), 400.0)  # r ~ 1330
-        assert fused_blur._split_wins(wide, 1, "int8")
-        assert fused_blur._split_wins(wide, 1, "bf16x3")
-
-    def test_wide_tile_picker(self):
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        # radius beyond the single-halo-block regime still yields a tile
-        plan = make_plan((8192, 8192), 308.0)  # r ~ 1024
-        th, tw = fused_blur._pick_tile(plan)
-        assert th in (256, 512, 768, 1024) and tw in (128, 256, 512, 1024)
-        # the cost model rejects VMEM-infeasible configs outright
-        assert (
-            fused_blur._wide_tile_cost(4000, 4000, 8192, 8192, 256, 256, 1)
-            is None
-        )
-
-    def test_fallback_matches_oracle(self, rng):
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import blur_fused
-
-        x = rng.random((3, 50, 70)).astype(np.float32) * 255
-        plan = make_plan((50, 70), 3.0)
-        got = np.asarray(blur_fused(jnp.asarray(x), plan))
-        want = oracle.blur_direct(x, plan)
-        np.testing.assert_allclose(got, want, atol=5e-3)
-
-    @pytest.mark.skipif(
-        os.environ.get("BLUR_TPU_PALLAS_INTERPRET") != "1",
-        reason="pallas interpreter is slow; set BLUR_TPU_PALLAS_INTERPRET=1",
+    @pytest.mark.parametrize(
+        "shape,sigma",
+        [
+            ((41, 57), 1.0),
+            ((41, 57), 6.0),
+            ((64, 200), 4.0),
+            ((33, 17), (5.0, 1.5)),
+            ((128, 96), 20.0),
+            ((7, 300), 8.0),
+        ],
     )
-    def test_interpret_mode_kernel_logic(self, rng):
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        x = rng.random((1, 24, 24)).astype(np.float32) * 255
-        plan = make_plan((24, 24), 1.0)  # width 5, radius 2
-        got = np.asarray(fused_blur.blur_fused(jnp.asarray(x), plan, tile=(8, 8)))
+    def test_float_matches_direct_oracle(self, rng, shape, sigma):
+        x = rng.random((2,) + shape).astype(np.float32) * 255
+        plan = make_plan(shape, sigma)
+        got = np.asarray(blur_band_matmul(jnp.asarray(x), plan, "bf16x3"))
         want = oracle.blur_direct(x, plan)
-        np.testing.assert_allclose(got, want, atol=1e-2)
+        np.testing.assert_allclose(got, want, atol=2e-2)
+
+    @pytest.mark.parametrize("sigma", [0.8, 3.0, 10.0])
+    @pytest.mark.parametrize("shape", [(48, 64), (37, 91)])
+    def test_u8_within_one_count(self, rng, shape, sigma):
+        from blur_algorithms.ops.layout import round_to_u8
+
+        img = (rng.random((3,) + shape) * 255).astype(np.uint8)
+        plan = make_plan(shape, sigma)
+        got = np.asarray(round_to_u8(
+            blur_band_matmul(jnp.asarray(img, jnp.float32), plan, "bf16x3")))
+        want = np.clip(np.floor(oracle.blur_direct(img, plan) + 0.5), 0, 255)
+        d = np.abs(got.astype(int) - want.astype(int))
+        assert d.max() <= 1 and (d == 0).mean() > 0.99
+
+    def test_signed_taps(self, rng):
+        from blur_algorithms.ops.plan import make_custom_plan
+
+        taps = np.array([-0.25, 1.5, -0.25], np.float32)
+        plan = make_custom_plan((40, 48), taps)
+        x = rng.random((40, 48)).astype(np.float32) * 255
+        got = np.asarray(blur_band_matmul(jnp.asarray(x), plan, "bf16x3"))
+        np.testing.assert_allclose(got, oracle.blur_direct(x, plan), atol=2e-2)
 
 
-class TestInt8Kernel:
-    """The fixed-point int8 MXU path (precision='int8')."""
+class TestFusedRoute:
+    """ops/fused.py decides kernel vs XLA band route by platform."""
 
-    def test_quantized_band_columns_sum_to_scale(self):
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import (
-            _INT8_SCALE,
-            _quantize_band_int8,
-        )
+    def test_cpu_takes_the_xla_band_route(self):
+        from blur_algorithms.ops import fused
 
-        taps = gaussian_kernel(3.0, 19)
-        mat = band_block_matrix(taps, 32)
-        q = _quantize_band_int8(mat)
-        np.testing.assert_array_equal(q.sum(axis=0), _INT8_SCALE)
-        # hi/lo int8 planes reconstruct q exactly
-        hi, lo = q >> 7, q & 127
-        assert hi.max() <= 127 and lo.max() <= 127 and q.min() >= 0
-        np.testing.assert_array_equal(hi * 128 + lo, q)
+        assert jax.default_backend() == "cpu"
+        assert fused.kernel_tiling(make_plan((64, 64), 3.0), 1) is None
 
-    def test_int8_interpret_matches_oracle(self, rng, monkeypatch):
-        """Full int8 kernel through the Pallas interpreter vs the u8 oracle."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
+    @pytest.mark.parametrize("in_bytes", [1, 4])
+    def test_gpu_takes_the_kernel_within_reach(self, monkeypatch, in_bytes):
+        from blur_algorithms.ops import fused
 
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        img = (rng.random((40, 48, 3)) * 255).astype(np.uint8)
-        plan = make_plan((40, 48), 2.0)
-        planar = jnp.moveaxis(jnp.asarray(img), -1, -3)
-        got = np.asarray(
-            fused_blur.blur_fused_u8(planar, plan, precision="int8", tile=(16, 16))
-        )
-        want = np.moveaxis(oracle.blur_u8(img, 2.0), -1, 0)
-        assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        t = fused.kernel_tiling(make_plan((2160, 3840), 10.0), in_bytes)
+        assert t is not None and t.ww >= t.tw + 2 * 32
 
-    def test_int8_multiblock_halo_interpret(self, rng, monkeypatch):
-        """Radius wider than the tile exercises the neighbor-block digits."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
+    def test_gpu_past_reach_takes_the_xla_band_route(self, monkeypatch):
+        from blur_algorithms.ops import fused
+        from blur_algorithms.pallas_kernels.fused_band import MAX_RADIUS
 
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        img = (rng.random((24, 30, 3)) * 255).astype(np.uint8)
-        plan = make_plan((24, 30), 6.0)  # radius 19 with 8x8 tiles
-        planar = jnp.moveaxis(jnp.asarray(img), -1, -3)
-        got = np.asarray(
-            fused_blur.blur_fused_u8(planar, plan, precision="int8", tile=(8, 8))
-        )
-        want = np.moveaxis(oracle.blur_u8(img, 6.0), -1, 0)
-        assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        plan = make_plan((2160, 3840), 60.0)
+        assert plan.row.support_radius > MAX_RADIUS
+        assert fused.kernel_tiling(plan, 1) is None
 
-    def test_int8_constant_input_exact(self, monkeypatch):
-        """Column-sum renormalization makes DC exact (every constant level)."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
+    @pytest.mark.parametrize("entry", ["blur_fused", "blur_fused_u8"])
+    def test_gpu_dispatches_to_the_kernel(self, monkeypatch, entry):
+        from blur_algorithms.ops import fused
+        from blur_algorithms.pallas_kernels import fused_band
 
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        plan = make_plan((16, 16), 2.0)
-        for level in (0, 1, 127, 128, 254, 255):
-            planar = jnp.full((1, 16, 16), level, jnp.uint8)
-            got = np.asarray(
-                fused_blur.blur_fused_u8(planar, plan, precision="int8", tile=(8, 8))
+        calls = []
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+        for name in ("fused_band_call", "blur_fused_band_u8", "blur_fused_band"):
+            monkeypatch.setattr(
+                fused_band, name,
+                lambda x, *a, name=name, **k: (calls.append(name), x)[1],
             )
-            assert (got == level).all(), f"level {level}"
-
-    def test_int8_applicability_gates(self):
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import int8_applicable
-
-        plan = make_plan((32, 32), 2.0)
-        assert int8_applicable(plan, jnp.uint8)
-        assert not int8_applicable(plan, jnp.float32)
-        # col radius 0 is fine (rows-only skip_cols form)...
-        thin = make_plan((1, 64), 2.0)
-        assert int8_applicable(thin, jnp.uint8)
-        # ...but row radius 0 is not (cols pass would read raw uint8)
-        tall = make_plan((64, 1), 2.0)
-        assert tall.row.support_radius == 0
-        assert not int8_applicable(tall, jnp.uint8)
-
-    def test_int8_falls_back_cleanly(self, rng):
-        """Float input / radius-0 axis silently take the bf16x3/fallback path."""
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import (
-            blur_fused,
-            blur_fused_u8,
-        )
-
-        x = rng.random((1, 20, 24)).astype(np.float32) * 255
-        plan = make_plan((20, 24), 2.0)
-        got = np.asarray(blur_fused(jnp.asarray(x), plan, precision="int8"))
-        want = oracle.blur_direct(x, plan)
-        np.testing.assert_allclose(got, want, atol=1e-2)
-
-        thin_img = (rng.random((1, 64, 3)) * 255).astype(np.uint8)
-        thin = make_plan((1, 64), 2.0)
-        planar = jnp.moveaxis(jnp.asarray(thin_img), -1, -3)
-        out = np.asarray(blur_fused_u8(planar, thin, precision="int8"))
-        want = np.moveaxis(oracle.blur_u8(thin_img, 2.0), -1, 0)
-        assert int(np.abs(out.astype(int) - want.astype(int)).max()) <= 1
-
-    def test_int8_split_pass1_interpret(self, rng, monkeypatch):
-        """Split form: int8 rows-only pass 1 + bf16x3 pass 2 vs the oracle."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        img = (rng.random((24, 30, 3)) * 255).astype(np.uint8)
-        plan = make_plan((24, 30), 6.0)  # radius 19
-        planar = jnp.moveaxis(jnp.asarray(img), -1, -3)
-        got = np.asarray(
-            fused_blur._blur_fused_split(planar, plan, "int8", out_u8=True)
-        )
-        want = np.moveaxis(oracle.blur_u8(img, 6.0), -1, 0)
-        assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1
-
-    def test_int8_adversarial_patterns_interpret(self, monkeypatch):
-        """Fixed-point worst cases: high-frequency and step patterns."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        h, w = 40, 48
-        yy, xx = np.mgrid[0:h, 0:w]
-        patterns = {
-            "checker": (255 * ((yy + xx) % 2)).astype(np.uint8),
-            "vstripes": (255 * (xx % 2)).astype(np.uint8),
-            "step": (255 * (xx > w // 2)).astype(np.uint8),
-        }
-        for sigma in (2.0, 10.0):
-            plan = make_plan((h, w), sigma)
-            for name, img2d in patterns.items():
-                img = img2d[..., None].repeat(3, -1)
-                planar = jnp.moveaxis(jnp.asarray(img), -1, -3)
-                got = np.asarray(
-                    fused_blur.blur_fused_u8(
-                        planar, plan, precision="int8", tile=(16, 16)
-                    )
-                )
-                want = np.moveaxis(oracle.blur_u8(img, sigma), -1, 0)
-                err = int(np.abs(got.astype(int) - want.astype(int)).max())
-                assert err <= 1, f"{name} s={sigma}: {err}"
-
-
-class TestInt8AdaptiveScale:
-    """Adaptive per-pass scales + re-quantized intermediate: no width gate."""
-
-    def test_no_width_gate(self):
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import int8_applicable
-
-        for sigma in (10.0, 20.0, 60.0, 150.0):
-            plan = make_plan((2048, 2048), sigma)
-            assert int8_applicable(plan, jnp.uint8), sigma
-        # rows-only form likewise
-        thin = make_plan((1, 1024), 60.0)
-        assert thin.col.support_radius == 0
-        assert int8_applicable(thin, jnp.uint8)
-
-    def test_pick_int8_scale_bounds(self):
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import (
-            _INT8_MAX_SCALE,
-            _INT8_SCALE,
-            pick_int8_scale,
-        )
-
-        # narrow kernel (big max tap): scale bounded by the 14-bit budget
-        taps = gaussian_kernel(1.0, 5)
-        s0 = pick_int8_scale(taps)
-        assert _INT8_SCALE <= s0 <= _INT8_MAX_SCALE
-        assert round(float(taps.max()) * s0) < 1 << 14
-        # wide kernel (tiny taps): scale grows but the largest quantized tap
-        # still fits the 14-bit two-plane budget
-        wide = gaussian_kernel(200.0, 1333)
-        s = pick_int8_scale(wide)
-        assert _INT8_SCALE < s <= _INT8_MAX_SCALE
-        assert round(float(wide.max()) * s) < 1 << 14
-        # degenerate all-zero taps fall back to the base scale
-        assert pick_int8_scale(np.zeros(3, np.float32)) == _INT8_SCALE
-
-    def test_pick_int8_scale_pow2(self):
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import (
-            _INT8_SCALE,
-            pick_int8_scale,
-        )
-
-        for sigma, width in ((1.0, 5), (10.0, 67), (80.0, 533), (200.0, 1333)):
-            taps = gaussian_kernel(sigma, width)
-            s = pick_int8_scale(taps, pow2=True)
-            m = s // _INT8_SCALE
-            assert s == _INT8_SCALE * m and m & (m - 1) == 0 and m <= 512
-            assert round(float(taps.max()) * s) < 1 << 14
-            # within a factor 2 of the unrestricted adaptive scale
-            assert s * 2 > min(pick_int8_scale(taps), _INT8_SCALE << 9)
-
-    def test_quantize_residual_spreading(self):
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import (
-            _quantize_band_int8,
-            pick_int8_scale,
-        )
-        from blur_algorithms_tpu.ops.band_matmul import band_block_matrix
-
-        taps = gaussian_kernel(40.0, 267)  # wide: many taps per column
-        mat = band_block_matrix(taps, 128)
-        scale = pick_int8_scale(taps)
-        q = _quantize_band_int8(mat, scale)
-        # every column sums to the scale exactly (DC-exact)
-        np.testing.assert_array_equal(q.sum(axis=0), scale)
-        # the correction is spread: no tap moved by more than 1 q-unit
-        raw = np.round(mat.astype(np.float64) * scale).astype(np.int64)
-        assert int(np.abs(q - raw).max()) <= 1
-        # off-band entries stay exactly zero
-        assert (q[mat == 0] == 0).all()
-
-    def test_quantize_rejects_negative_taps(self):
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import (
-            _quantize_band_int8,
-        )
-
-        with pytest.raises(ValueError):
-            _quantize_band_int8(np.array([[0.5], [-0.1], [0.6]]))
-
-    def test_wide_rows_only_adaptive_scale_interpret(self, rng, monkeypatch):
-        """A very wide kernel stays <=1 count in the rows-only form."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        img = (rng.random((1, 256, 3)) * 255).astype(np.uint8)
-        plan = make_plan((1, 256), 40.0)  # row radius ~ 127, col radius 0
-        assert plan.row.support_radius > 100
-        planar = jnp.moveaxis(jnp.asarray(img), -1, -3)
-        got = np.asarray(
-            fused_blur.blur_fused_u8(planar, plan, precision="int8", tile=(8, 128))
-        )
-        want = np.moveaxis(oracle.blur_u8(img, 40.0), -1, 0)
-        assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1
-
-    def test_wide_full_form_int8_interpret(self, rng, monkeypatch):
-        """Full two-pass int8 far past the old r_sum=113 gate: the
-        re-quantized intermediate keeps it inside <=1 count."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        img = (rng.random((128, 128, 3)) * 255).astype(np.uint8)
-        plan = make_plan((128, 128), 20.0)  # r = 63 + 63 = 126 > 113
-        assert plan.row.support_radius + plan.col.support_radius > 113
-        assert fused_blur.int8_applicable(plan, jnp.uint8)
-        planar = jnp.moveaxis(jnp.asarray(img), -1, -3)
-        got = np.asarray(
-            fused_blur._blur_fused_planar(
-                planar, plan, (32, 32), "int8", out_u8=True
-            )
-        )
-        want = np.moveaxis(oracle.blur_u8(img, 20.0), -1, 0)
-        assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1
-
-    def test_wide_full_form_adversarial_interpret(self, monkeypatch):
-        """Checkerboard + step worst cases at a wide kernel."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        h, w = 96, 96
-        yy, xx = np.mgrid[0:h, 0:w]
-        plan = make_plan((h, w), 18.0)  # width clamps near the frame size
-        for name, img2d in {
-            "checker": (255 * ((yy + xx) % 2)).astype(np.uint8),
-            "step": (255 * (xx > w // 2)).astype(np.uint8),
-        }.items():
-            img = img2d[..., None].repeat(3, -1)
-            planar = jnp.moveaxis(jnp.asarray(img), -1, -3)
-            got = np.asarray(
-                fused_blur._blur_fused_planar(
-                    planar, plan, (32, 32), "int8", out_u8=True
-                )
-            )
-            want = np.moveaxis(oracle.blur_u8(img, 18.0), -1, 0)
-            err = int(np.abs(got.astype(int) - want.astype(int)).max())
-            assert err <= 1, f"{name}: {err}"
-
-
-class TestInt8E32Split:
-    """Split regime with the int32 E-intermediate: int8 dots in BOTH passes."""
-
-    def test_split_e32_matches_oracle_interpret(self, rng, monkeypatch):
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        img = (rng.random((64, 80, 3)) * 255).astype(np.uint8)
-        plan = make_plan((64, 80), 18.0)
-        planar = jnp.moveaxis(jnp.asarray(img), -1, -3)
-        got = np.asarray(
-            fused_blur._blur_fused_split(planar, plan, "int8", out_u8=True)
-        )
-        want = np.moveaxis(oracle.blur_u8(img, 18.0), -1, 0)
-        assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1
-
-    def test_split_e32_constant_exact_interpret(self, monkeypatch):
-        """DC-exactness survives the E round trip at every constant level."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-        plan = make_plan((32, 32), 6.0)
-        for level in (0, 127, 255):
-            planar = jnp.full((1, 32, 32), level, jnp.uint8)
-            got = np.asarray(
-                fused_blur._blur_fused_split(planar, plan, "int8", out_u8=True)
-            )
-            assert (got == level).all(), f"level {level}"
-
-    def test_e32_mode_validation(self, rng):
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        plan = make_plan((32, 32), 6.0)
-        rows_plan, cols_plan = fused_blur._split_plans(plan)
-        x8 = jnp.zeros((1, 32, 32), jnp.uint8)
-        with pytest.raises(ValueError):  # e32 out needs a rows-only plan
-            fused_blur._blur_fused_planar(
-                x8, plan, (16, 16), "int8", out_u8=False, e32="out"
-            )
-        with pytest.raises(ValueError):  # e32 in needs int16 input
-            fused_blur._blur_fused_planar(
-                x8, cols_plan, (16, 16), "int8", out_u8=True, e32="in"
-            )
-        with pytest.raises(ValueError):  # e32 needs int8 precision
-            fused_blur._blur_fused_planar(
-                x8, rows_plan, (16, 16), "bf16x3", out_u8=False, e32="out"
-            )
-
-    def test_split_hbm_guard(self):
-        """Giant frames: the f32-intermediate split would exhaust HBM (the
-        measured RESOURCE_EXHAUSTED regime) — but the int8 path's int16-E
-        intermediate halves the footprint and fits."""
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        giant = make_plan((14500, 24000), 560.0)  # r ~ 1862
-        f32_est = fused_blur.split_hbm_bytes(giant, 1, "bf16x3")
-        assert f32_est > fused_blur._split_hbm_budget()
-        assert not fused_blur._split_wins(giant, 1, "bf16x3")
-        fused_blur._pick_tile(giant, 1)  # the single form stays feasible
-        e16_est = fused_blur.split_hbm_bytes(giant, 1, "int8")
-        assert e16_est <= fused_blur._split_hbm_budget()
-        assert fused_blur._split_wins(giant, 1, "int8")  # validated on chip
-
-    def test_e32_split_predicate(self):
-        from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-        plan = make_plan((256, 256), 20.0)
-        assert fused_blur.e32_split_applicable(plan, "int8", 1)
-        assert not fused_blur.e32_split_applicable(plan, "bf16x3", 1)
-        assert not fused_blur.e32_split_applicable(plan, "int8", 4)
-        thin = make_plan((1, 256), 20.0)  # col radius 0: no cols pass
-        assert not fused_blur.e32_split_applicable(thin, "int8", 1)
-
-    def test_pow2_scale_leaves_spread_headroom(self):
-        """After the +/-1 residual spread, every quantized tap stays < 2^14
-        across a dense sigma sweep (the old bound had zero margin)."""
-        from blur_algorithms_tpu.ops.band_matmul import band_block_matrix
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import (
-            _quantize_band_int8,
-            pick_int8_scale,
-        )
-
-        for sigma in np.linspace(12.5, 12.9, 9):  # brackets the tightest case
-            taps = gaussian_kernel(float(sigma), 85)
-            s = pick_int8_scale(taps, pow2=True)
-            q = _quantize_band_int8(band_block_matrix(taps, 64), s)
-            assert q.max() < 1 << 14
-
-
-class TestDmaForm:
-    """Exact-window DMA kernel plumbing (device runs are TPU-only)."""
-
-    def test_not_applicable_off_tpu(self, rng):
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            dma_form_applicable,
-        )
-
-        plan = make_plan((64, 64), 4.0)
-        assert not dma_form_applicable(jnp.uint8, plan)  # CPU backend
-
-    def test_tile_and_window_geometry(self):
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _pick_tile_dma,
-        )
-
-        plan = make_plan((2160, 3840), 10.0)
-        th, tw = _pick_tile_dma(plan)
-        assert 2160 % th == 0 and th % 8 == 0
-        assert tw % 128 == 0
-        small = make_plan((100, 90), 3.0)
-        th2, tw2 = _pick_tile_dma(small)
-        assert th2 % 8 == 0 and tw2 % 128 == 0
-
-    def test_bf16x3_mode_gating(self):
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            dma_form_applicable,
-        )
-        from blur_algorithms_tpu.ops.plan import make_custom_plan
-
-        # signed taps: int8 mode refuses, bf16x3 mode is gated only by
-        # backend (False here on CPU) — exercised end to end on TPU
-        plan = make_custom_plan(
-            (64, 64), np.array([-0.25, 1.5, -0.25], np.float32)
-        )
-        assert not dma_form_applicable(jnp.uint8, plan, "int8")
-        assert not dma_form_applicable(jnp.uint8, plan, "bf16x3")  # CPU
-
-    def test_chunk_policy_small_radius(self):
-        """r<=64: chunks divide the tile on MXU-friendly boundaries; the
-        4K sigma=10 anchor reproduces the measured winner — the
-        whole-height strip (2160, 384) (min-of-5 interleaved: 0.98 ms vs
-        1.13 at 720-tall) with chunks (128, 24)."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _pick_chunks_dma,
-            _pick_tile_dma,
-        )
-
-        plan = make_plan((2160, 3840), 10.0)
-        rh, rw = plan.col.support_radius, plan.row.support_radius
-        assert rh <= 64 and rw <= 64
-        th, tw = _pick_tile_dma(plan)
-        assert (th, tw) == (2160, 384)
-        cw, ch = _pick_chunks_dma(th, tw, rh, rw)
-        assert (cw, ch) == (128, 24)
-        assert tw % cw == 0 and th % ch == 0
-
-    def test_chunk_policy_dense_fallbacks(self):
-        """Radii past the form's domain keep the dense single-dot form;
-        undividable tiles now chunk anyway (tail chunks slice the band
-        operand)."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _pick_chunks_dma,
-        )
-
-        # wide radii chunk, with the cols chunk growing with the radius
-        # (confirm runs 2026-08-19: ch = 24 * ceil(rh/96) in [24, 120])
-        assert _pick_chunks_dma(432, 384, 165, 165) == (128, 48)
-        assert _pick_chunks_dma(2160, 384, 332, 332) == (128, 96)
-        assert _pick_chunks_dma(2160, 256, 515, 515) == (128, 120)
-        assert _pick_chunks_dma(2160, 384, 95, 95) == (128, 24)
-        # past _CHUNK_MAX_RADIUS (= the DMA applicability cap): dense
-        assert _pick_chunks_dma(432, 384, 601, 601) == (384, 432)
-        # th=56 does not divide by 24: tail chunks make ch=24 legal
-        assert _pick_chunks_dma(56, 384, 20, 20) == (128, 24)
-        # tiles smaller than one chunk clamp to the tile
-        assert _pick_chunks_dma(16, 128, 4, 4) == (128, 16)
-        assert _pick_chunks_dma(720, 128, 20, 20) == (128, 24)
-
-    def test_bf16x3_chunks_like_int8(self):
-        """bf16x3 chunking was device-certified (<=1 count vs dense,
-        1.5-2.5x faster: dma_chunk_sweep_bf16x3.json) and shares the
-        int8 policy."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _pick_chunks_dma,
-        )
-
-        assert _pick_chunks_dma(720, 384, 32, 32, "bf16x3") == (128, 24)
-        assert _pick_chunks_dma(720, 384, 32, 32, "int8") == (128, 24)
-        assert _pick_chunks_dma(720, 384, 601, 601, "bf16x3") == (384, 720)
-
-    def test_tile_vmem_fallback_wide_float_frame(self):
-        """On a frame wide enough that whole-height strips blow the VMEM
-        budget (the out BlockSpec holds a whole row strip), the picker
-        takes the tallest feasible strip for u8 (here 1080, an exact
-        2-strip split of 2160) and falls all the way back to a short
-        dense-regime-envelope tile for f32, whose 4-byte out strips are
-        4x larger."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _dma_vmem_bytes,
-            _hw,
-            _pick_chunks_dma,
-            _pick_tile_dma,
-        )
-
-        plan = make_plan((2160, 40000), 10.0)
-        rh, rw = plan.col.support_radius, plan.row.support_radius
-        th_u8, _ = _pick_tile_dma(plan, in_b=1)
-        assert th_u8 == 1080  # tallest VMEM-feasible u8 strip, divides H
-        th_f32, tw = _pick_tile_dma(plan, in_b=4)
-        assert th_f32 < 720  # f32 strips do not fit: short fallback
-        cw, ch = _pick_chunks_dma(th_f32, tw, rh, rw)
-        vmem = _dma_vmem_bytes(
-            2160, 40000, th_f32, tw, rh, rw, 4, 2, cw, ch
-        )
-        assert vmem <= _hw().wide_vmem_budget
-
-    def test_tile_vmem_accounts_for_output_width(self):
-        """u8 input with f32 output (the sharded path's ``out_u8=False``
-        default): the out BlockSpec strips are 4-byte, so the VMEM model
-        must size them at the OUTPUT width. Regression: with out strips
-        counted at in_b=1 the picker chose a whole-height (2880, 384)
-        tile whose true f32-out footprint is ~144 MiB — past the 110 MiB
-        budget and the chip's physical VMEM."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _dma_vmem_bytes,
-            _hw,
-            _pick_chunks_dma,
-            _pick_tile_dma,
-        )
-
-        plan = make_plan((2880, 5120), 10.0)
-        rh, rw = plan.col.support_radius, plan.row.support_radius
-        budget = _hw().wide_vmem_budget
-
-        th_u8, tw = _pick_tile_dma(plan, in_b=1, out_b=1)
-        assert th_u8 == 2880  # u8->u8 keeps the whole-height strip
-
-        # the u8->u8 pick would overflow at f32 out...
-        cw, ch = _pick_chunks_dma(th_u8, tw, rh, rw)
-        assert _dma_vmem_bytes(
-            2880, 5120, th_u8, tw, rh, rw, 1, 2, cw, ch, 4
-        ) > budget
-        # ...so the f32-out pick must shrink to a geometry that fits
-        th, tw = _pick_tile_dma(plan, in_b=1, out_b=4)
-        assert th < th_u8
-        cw, ch = _pick_chunks_dma(th, tw, rh, rw)
-        assert _dma_vmem_bytes(
-            2880, 5120, th, tw, rh, rw, 1, 2, cw, ch, 4
-        ) <= budget
-
-    def test_tile_vmax_giant_frames(self):
-        """Giant frames (whole-height strips blow VMEM): the picker takes
-        the tallest feasible strip CLASS — per strip count n the cost
-        optimum is the shortest covering tile ceil8(h/n), so the minimal
-        feasible strip count wins with near-zero grid-padding waste
-        (ties prefer exact H divisors). Anchors: 24000 r=515 -> 2400 (10
-        exact strips; device-measured regime 77 -> 60 ms vs the old
-        744-tall pick); 8000 r=398 -> 2672 (3 strips, 0.2% waste — the
-        old +-56-band refinement picked 3528 at 32% waste)."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _dma_vmem_bytes,
-            _hw,
-            _pick_chunks_dma,
-            _pick_tile_dma,
-        )
-
-        cases = [
-            ((24000, 14500), 155.0, 2400),
-            ((8000, 8000), 120.0, 2672),
-            ((8000, 8000), 30.0, 4000),
-            ((12000, 9000), 50.0, 3000),
-            ((22000, 14500), 155.0, 2200),
-        ]
-        for shape, sigma, want_th in cases:
-            plan = make_plan(shape, sigma)
-            rh, rw = plan.col.support_radius, plan.row.support_radius
-            th, tw = _pick_tile_dma(plan, in_b=1)
-            assert th == want_th, (shape, sigma, th)
-            h, w = shape
-            # minimal-waste invariant: grid padding <= 0.5%
-            assert -(-h // th) * th / h <= 1.005
-            cw, ch = _pick_chunks_dma(th, tw, rh, rw)
-            vmem = _dma_vmem_bytes(h, w, th, tw, rh, rw, 1, 2, cw, ch)
-            assert vmem <= _hw().wide_vmem_budget
-
-    def test_vmax_route_end_to_end_interpret(self, rng, monkeypatch):
-        """The vmax route's CHOICE runs the kernel end to end: shrink the
-        device budget so whole-height strips don't fit at 400 rows — the
-        picker must take the tallest-strip-class route (2 exact strips
-        of 200) and the kernel at that geometry must match the oracle."""
-        import dataclasses
-
-        from blur_algorithms_tpu.pallas_kernels import fused_dma
-
-        small = dataclasses.replace(fused_dma._hw(), vmem_bytes=3 << 20)
-        monkeypatch.setattr(fused_dma, "_hw", lambda: small)
-
-        plan = make_plan((400, 256), 3.0)
-        th, tw = fused_dma._pick_tile_dma(plan, in_b=1)
-        assert (th, tw) == (200, 256)
-
-        img = (rng.random((1, 400, 256)) * 255).astype(np.uint8)
-        rh, rw = plan.col.support_radius, plan.row.support_radius
-        out = np.asarray(
-            fused_dma._blur_fused_dma_impl(
-                jnp.asarray(img), plan, "int8", True,
-                tile=(th, tw),
-                chunks=fused_dma._pick_chunks_dma(th, tw, rh, rw),
-            )
-        )
-        want = oracle.blur_u8(img[0][..., None], 3.0)[..., 0]
-        d = np.abs(out[0].astype(int) - want.astype(int))
-        assert d.max() <= 1
-        assert (d == 0).mean() > 0.99
-
-    def test_chunk_geometry_any_plan(self):
-        """Chunk invariants over a sigma/shape grid: exact division and
-        alignment whenever chunking engages."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _pick_chunks_dma,
-            _pick_tile_dma,
-        )
-
-        for h, w in [(2160, 3840), (1000, 1500), (720, 1280), (97, 131)]:
-            for sigma in (2.0, 5.0, 10.0, 19.0):
-                plan = make_plan((h, w), sigma)
-                rh, rw = plan.col.support_radius, plan.row.support_radius
-                th, tw = _pick_tile_dma(plan)
-                cw, ch = _pick_chunks_dma(th, tw, rh, rw)
-                assert 0 < cw <= tw and 0 < ch <= th
-                assert cw % 128 == 0 or cw == tw
-                assert ch % 8 == 0 or ch == th
-
-    def test_int8_chunked_interpret_matches_oracle(self, rng):
-        """Full DMA kernel body (double-buffered window loop + chunked
-        digit pipeline) through the Pallas interpreter vs the u8 oracle."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _blur_fused_dma_impl,
-        )
-
-        img = (rng.random((1, 96, 256)) * 255).astype(np.uint8)
-        plan = make_plan((96, 256), 3.0)
-        out = np.asarray(
-            _blur_fused_dma_impl(
-                jnp.asarray(img), plan, "int8", True,
-                tile=(48, 128), chunks=(128, 24),
-            )
-        )
-        want = oracle.blur_u8(img[0][..., None], 3.0)[..., 0]
-        d = np.abs(out[0].astype(int) - want.astype(int))
-        assert d.max() <= 1
-        assert (d == 0).mean() > 0.99
-
-    def test_int8_chunked_bitidentical_to_dense_interpret(self, rng):
-        """The chunked band matmuls' skipped terms are exact int32 zeros:
-        chunked and dense int8 outputs must be BIT-identical (the claim
-        the TPU sweep certified; kept honest on the interpreter). Covers
-        rows chunking (tw=256 > cw=128) and cols chunking (ch=24 < th)."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _blur_fused_dma_impl,
-        )
-
-        img = (rng.random((1, 72, 320)) * 255).astype(np.uint8)
-        plan = make_plan((72, 320), 4.0)
-        x = jnp.asarray(img)
-        chunked = np.asarray(
-            _blur_fused_dma_impl(
-                x, plan, "int8", True, tile=(72, 256), chunks=(128, 24)
-            )
-        )
-        dense = np.asarray(
-            _blur_fused_dma_impl(
-                x, plan, "int8", True, tile=(72, 256), chunks=(256, 72)
-            )
-        )
-        np.testing.assert_array_equal(chunked, dense)
-        # tail chunks (72 % 32 == 8: the cols loop ends in a sliced-band
-        # tail chunk) are the same exact-zero-skipping arithmetic
-        tail = np.asarray(
-            _blur_fused_dma_impl(
-                x, plan, "int8", True, tile=(72, 256), chunks=(128, 32)
-            )
-        )
-        np.testing.assert_array_equal(tail, dense)
-
-    def test_bf16x3_interpret_matches_oracle(self, rng):
-        """Float route (bf16x3 hi/lo dots) through the interpreter."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _blur_fused_dma_impl,
-        )
-
-        x = rng.random((1, 64, 256)).astype(np.float32) * 255
-        plan = make_plan((64, 256), 2.0)
-        out = np.asarray(
-            _blur_fused_dma_impl(
-                jnp.asarray(x), plan, "bf16x3", False,
-                tile=(32, 128), chunks=(128, 32),
-            )
-        )
-        want = oracle.blur_direct(x, plan)
-        np.testing.assert_allclose(out, want, atol=5e-2)
-
-    def test_bf16x3_multichunk_interpret(self, rng):
-        """TRUE multi-chunk bf16x3 (cw=128 < tw=256 AND ch=32 < th=64):
-        the chunk loops in ``_tile_bf16x3`` that ``_pick_chunks_dma``
-        keeps disabled in production until a device sweep certifies them
-        (``benchmarks/dma_chunk_sweep.py --precision bf16x3``). Chunking
-        regroups f32 partial sums, so the gate is the sweep's: <= 1 uint8
-        count vs the dense form, and <= 1 vs the oracle."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _blur_fused_dma_impl,
-        )
-
-        img = (rng.random((1, 64, 256)) * 255).astype(np.uint8)
-        plan = make_plan((64, 256), 2.5)
-        x = jnp.asarray(img)
-        chunked = np.asarray(
-            _blur_fused_dma_impl(
-                x, plan, "bf16x3", True, tile=(64, 256), chunks=(128, 32)
-            )
-        )
-        dense = np.asarray(
-            _blur_fused_dma_impl(
-                x, plan, "bf16x3", True, tile=(64, 256), chunks=(256, 64)
-            )
-        )
-        assert np.abs(chunked.astype(int) - dense.astype(int)).max() <= 1
-        want = oracle.blur_u8(img[0][..., None], 2.5)[..., 0]
-        assert np.abs(chunked[0].astype(int) - want.astype(int)).max() <= 1
-
-    def test_direct_form_bitidentical_to_assemble(self, rng):
-        """The no-assemble direct kernel (window spliced from the frame
-        + thin edge strips, ``_kernel_direct``) must be BIT-identical to
-        the assemble form — its windows hold the same bytes by
-        construction. Covers: first/last window straddles, interior
-        frame-sourced windows (nbw > 2), ragged h/w, int8 and bf16x3,
-        u8 and f32 frames, and radius clamped near dim-1."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _blur_fused_dma_impl,
-            _direct_applicable,
-        )
-
-        cases = [
-            ((48, 640), 3.0, (48, 256), "int8", True),    # nbw=3 interior
-            ((41, 899), 5.0, (48, 384), "int8", True),    # ragged h, w
-            ((40, 384), 25.0, (40, 256), "int8", True),   # rw clamped wide
-            ((40, 512), 12.0, (40, 256), "bf16x3", False),  # float route
-        ]
-        for (h, w), sigma, tile, prec, u8 in cases:
-            plan = make_plan((h, w), sigma)
-            rh, rw = plan.col.support_radius, plan.row.support_radius
-            assert _direct_applicable(h, w, tile[0], tile[1], rh, rw, False)
-            img = (rng.random((2, h, w)) * 255).astype(np.uint8)
-            x = jnp.asarray(img) if u8 else jnp.asarray(img, jnp.float32)
-            a = np.asarray(
-                _blur_fused_dma_impl(x, plan, prec, u8, tile=tile,
-                                     direct=False)
-            )
-            b = np.asarray(
-                _blur_fused_dma_impl(x, plan, prec, u8, tile=tile,
-                                     direct=True)
-            )
-            np.testing.assert_array_equal(a, b, err_msg=f"{(h, w, prec)}")
-
-    def test_direct_applicable_gates(self):
-        """Geometry gates of the direct form: nbw >= 2, orw <= tw, edge
-        strips within the frame; multi-strip grids additionally need
-        th >= orh and the second-to-last strip's fetch inside the frame
-        region (each strip touches at most one thin strip)."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _direct_applicable,
-        )
-
-        assert _direct_applicable(2160, 3840, 2160, 384, 32, 32, False)
-        # multi-strip grids splice directly too (round 2: giant frames)
-        assert _direct_applicable(2160, 3840, 720, 384, 32, 32, False)
-        assert _direct_applicable(24000, 14500, 2400, 384, 99, 99, False)
-        # second-to-last window overhanging the frame region gets its
-        # own frame + rb splice (12000x9000 r=165 geometry)
-        assert _direct_applicable(12000, 9000, 3000, 384, 165, 165, False)
-        # wide radii (orw > tw): several windows straddle each border —
-        # static splices cover them (round 2: the giant sweep points)
-        assert _direct_applicable(24000, 14500, 2400, 384, 515, 515,
-                                  False)
-        # strips shorter than the top strip (th < orh): multiple strips
-        # splice from `top`
-        assert _direct_applicable(2160, 3840, 160, 384, 400, 32, False)
-        # a window needing lb AND rb at once (3-piece) -> assemble form
-        assert not _direct_applicable(2160, 256, 2160, 128, 32, 200,
-                                      False)
-        # rows-prepadded (multi-chip shard) -> assemble form
-        assert not _direct_applicable(2160, 3840, 2160, 384, 32, 32, True)
-        # single column window -> assemble form
-        assert not _direct_applicable(2160, 256, 2160, 384, 32, 32, False)
-        # halo wider than a tile (orw > tw) now splices several windows
-        # per side statically
-        assert _direct_applicable(2160, 3840, 2160, 256, 400, 400, False)
-        # non-tile-aligned tile= kwarg: the interior-window jsafe
-        # arithmetic assumes tw % 128 == 0 (regression: a (40, 320) tile
-        # on a 1024-wide frame read the wrong frame columns)
-        assert not _direct_applicable(40, 1024, 40, 320, 4, 4, False)
-        assert not _direct_applicable(44, 1024, 44, 256, 4, 4, False)
-
-    def test_direct_multistrip_interpret(self, rng):
-        """Multi-strip direct splice (nbh > 1): strip 0 = top + frame,
-        interior strips one frame piece, last strip frame + bot — must be
-        BIT-identical to the assemble form (same virtual padded frame by
-        construction) and match the oracle. Covers nbh = 2 and 3 (with an
-        interior strip AND an interior column window), ragged heights
-        (grid-padding rows on the last strip), and both precisions."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _blur_fused_dma_impl,
-            _direct_applicable,
-        )
-
-        cases = [
-            # (h, w, sigma, (th, tw)) — nbh = 2 / 3, nbw = 2 / 3
-            (96, 256, 3.0, (48, 128)),
-            (120, 384, 2.0, (40, 128)),
-            (100, 256, 2.0, (40, 128)),  # ragged: 3 strips cover 120
-            # second-to-last window overhangs the frame region
-            # (ov = 128): its own frame + rb splice; nbw = 3 (no plain
-            # interior) and nbw = 5 (plain interiors j = 1, 2 as well)
-            (96, 300, 3.0, (48, 128)),
-            (96, 556, 3.0, (48, 128)),
-            # wide radius (orw = 2*tw): two windows straddle lb, three
-            # straddle rb, NO plain window at all
-            (96, 600, (2.0, 50.0), (48, 128)),
-            # orh > th: two strips splice from `top`, two from `bot`,
-            # one plain interior strip
-            (80, 256, (6.3, 2.0), (16, 128)),
-        ]
-        for h, w, sigma, tile in cases:
-            plan = make_plan((h, w), sigma)
-            rh, rw = plan.col.support_radius, plan.row.support_radius
-            assert _direct_applicable(h, w, *tile, rh, rw, False), (h, w)
-            img = (rng.random((1, h, w)) * 255).astype(np.uint8)
-            x = jnp.asarray(img)
-            direct = np.asarray(
-                _blur_fused_dma_impl(
-                    x, plan, "int8", True, tile=tile, direct=True
-                )
-            )
-            assembled = np.asarray(
-                _blur_fused_dma_impl(
-                    x, plan, "int8", True, tile=tile, direct=False
-                )
-            )
-            np.testing.assert_array_equal(direct, assembled)
-            want = oracle.blur_u8(img[0][..., None], sigma)[..., 0]
-            d = np.abs(direct[0].astype(int) - want.astype(int))
-            assert d.max() <= 1, (h, w)
-
-        # float route through the same splice
-        h, w, sigma, tile = 120, 384, 2.0, (40, 128)
-        plan = make_plan((h, w), sigma)
-        xf = rng.random((1, h, w)).astype(np.float32) * 255
-        got = np.asarray(
-            _blur_fused_dma_impl(
-                jnp.asarray(xf), plan, "bf16x3", False, tile=tile,
-                direct=True,
-            )
-        )
-        np.testing.assert_allclose(got, oracle.blur_direct(xf, plan),
-                                   atol=5e-2)
-
-    def test_assemble_padded_matches_reflect_pad(self, rng):
-        """``_assemble_padded`` (thin edge strips + 5 aligned HBM->HBM
-        DMAs) must reproduce the XLA route it replaced bit-exactly:
-        reflect-101 by the radius at offset (orh, orw), zeros elsewhere.
-        Covers ragged shapes (h % 8 != 0, w % 128 != 0), radius clamped
-        to dim-1, asymmetric radii, and u8 + f32 dtypes."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _align_geometry,
-            _assemble_padded,
-        )
-        from blur_algorithms_tpu.ops.pad import reflect_101
-
-        cases = [
-            # (h, w, rh, rw, th, tw)
-            (96, 256, 4, 4, 48, 128),      # aligned frame
-            (100, 200, 7, 3, 48, 128),     # ragged h and w
-            (9, 129, 8, 128, 8, 128),      # radius at the dim-1 clamp
-            (70, 250, 1, 140, 24, 128),    # rw > w/2, ragged both
-            (256, 384, 130, 5, 64, 256),   # rh > 128 (orh > 8)
-        ]
-        for h, w, rh, rw, th, tw in cases:
-            assert rh <= h - 1 and rw <= w - 1  # the plan invariant
-            orh, orw, ro, co, sh, sw, shp, swp = _align_geometry(
-                th, tw, rh, rw
-            )
-            nbh, nbw = -(-h // th), -(-w // tw)
-            hp = (nbh - 1) * th + shp
-            wp = (nbw - 1) * tw + swp
-            for dt in (np.uint8, np.float32):
-                x = (rng.random((2, h, w)) * 255).astype(dt)
-                want = reflect_101(
-                    jnp.asarray(x), [(rh, rh), (rw, rw)], axes=[-2, -1]
-                )
-                want = np.asarray(
-                    jnp.pad(
-                        want,
-                        [
-                            (0, 0),
-                            (ro, hp - ro - want.shape[-2]),
-                            (co, wp - co - want.shape[-1]),
-                        ],
-                    )
-                )
-                got = np.asarray(
-                    _assemble_padded(jnp.asarray(x), rh, rw, orh, orw,
-                                     hp, wp)
-                )
-                np.testing.assert_array_equal(
-                    got, want,
-                    err_msg=f"case h={h} w={w} rh={rh} rw={rw} dt={dt}",
-                )
-
-    def test_haloed_dma_matches_oracle_interpret(self, rng):
-        """rows_prepadded DMA form (the multi-chip per-shard step): halo
-        rows supplied by the caller, columns reflected locally — must
-        match the full blur on the surrounding frame. Covers int8 and
-        bf16x3, ragged widths, and the blocked haloed kernel as twin."""
-        from blur_algorithms_tpu.pallas_kernels.fused_blur import (
-            blur_fused_haloed,
-        )
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            blur_fused_haloed_dma,
-        )
-
-        h, w, sigma = 64, 320, 3.0
-        plan = make_plan((h, w), sigma)
-        rh = plan.col.support_radius
-        # a shard cut from a taller frame: halo rows are REAL data, so
-        # every output row matches the full blur of the tall frame (no
-        # row-border interaction: output row o reads tall rows
-        # [o, o + 2rh], all inside the tall frame)
-        tall = (rng.random((2, h + 2 * rh, w)) * 255).astype(np.uint8)
-        want_full = np.stack([
-            oracle.blur_u8(tall[c][..., None], sigma)[..., 0]
-            for c in range(2)
-        ])
-        x = jnp.asarray(tall)
-        for precision in ("int8", "bf16x3"):
-            got = np.asarray(blur_fused_haloed_dma(
-                x, plan, precision=precision, out_u8=True))
-            assert got.shape == (2, h, w)
-            twin = np.asarray(blur_fused_haloed(
-                x, plan, precision=precision, out_u8=True))
-            d_twin = np.abs(got.astype(int) - twin.astype(int))
-            assert d_twin.max() <= 1, precision
-            d = np.abs(
-                got.astype(int) - want_full[:, rh : rh + h].astype(int)
-            )
-            assert d.max() <= 1, precision
-
-    def test_sharded_dma_route_interpret(self, rng, monkeypatch):
-        """Force the sharded per-shard step onto the DMA form on the CPU
-        mesh (dma_form_applicable is TPU-only): output must match the
-        oracle like the blocked route does."""
-        import blur_algorithms_tpu.parallel.sharded as sharded_mod
-        from blur_algorithms_tpu.parallel import make_mesh
+        x = jnp.zeros((3, 32, 48), jnp.uint8)
+        getattr(fused, entry)(x, make_plan((32, 48), 2.0))
+        assert calls
+
+    def test_cpu_never_calls_the_kernel(self, monkeypatch, rng):
+        from blur_algorithms.ops import fused
+        from blur_algorithms.pallas_kernels import fused_band
 
         monkeypatch.setattr(
-            "blur_algorithms_tpu.pallas_kernels.fused_dma."
-            "dma_form_applicable",
-            lambda *a, **k: True,
+            fused_band, "fused_band_call",
+            lambda *a, **k: pytest.fail("kernel called on CPU"),
         )
-        img = (rng.random((2, 1, 64, 256)) * 255).astype(np.uint8)
-        plan = make_plan((64, 256), 2.0)
-        mesh = make_mesh(dp=2, sp=2, devices=jax.devices()[:4])
-        out = np.asarray(
-            sharded_mod.blur_sharded(jnp.asarray(img), plan, mesh,
-                                     out_u8=True)
-        )
-        for b in range(2):
-            want = oracle.blur_u8(img[b, 0][..., None], 2.0)[..., 0]
-            d = np.abs(out[b, 0].astype(int) - want.astype(int))
-            assert d.max() <= 1
-            # the per-shard step routes the hybrid rung here (round 3):
-            # same <=1 gate, slightly lower exact fraction than int8
-            assert (d == 0).mean() > 0.95
+        img = (rng.random((3, 32, 48)) * 255).astype(np.uint8)
+        plan = make_plan((32, 48), 2.0)
+        got = np.asarray(fused.blur_fused_u8(jnp.asarray(img), plan))
+        want = np.clip(np.floor(oracle.blur_direct(img, plan) + 0.5), 0, 255)
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
-    def test_policy_driven_interpret_small_frame(self, rng):
-        """tile=None: _pick_tile_dma + _pick_chunks_dma drive the kernel
-        (the production call shape), small-frame clamps included."""
-        from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-            _blur_fused_dma_impl,
-        )
+    def test_haloed_xla_route_matches_whole_frame(self, rng):
+        """The haloed step over exact halo rows equals the whole-frame blur."""
+        from blur_algorithms.ops import fused
+        from blur_algorithms.ops.pad import reflect_101
 
-        img = (rng.random((2, 100, 200)) * 255).astype(np.uint8)
-        plan = make_plan((100, 200), 2.0)
-        out = np.asarray(_blur_fused_dma_impl(jnp.asarray(img), plan,
-                                              "int8", True))
-        for c in range(2):
-            want = oracle.blur_u8(img[c][..., None], 2.0)[..., 0]
-            d = np.abs(out[c].astype(int) - want.astype(int))
-            assert d.max() <= 1
-
-
-def test_multi_slot_window_buffer_bit_identical(rng):
-    """The n-slot DMA window pipeline (round-3 knob) is scheduling only:
-    any slot count produces the 2-slot result bit for bit."""
-    import numpy as np
-
-    from blur_algorithms_tpu.ops.plan import make_plan
-    from blur_algorithms_tpu.pallas_kernels import fused_dma
-
-    img = (rng.random((3, 48, 1024)) * 255).astype(np.uint8)
-    import jax.numpy as jnp
-
-    x = jnp.asarray(img)
-    outs = {}
-    for ns in (2, 3):
-        plan = make_plan((48, 1024), 4.0)  # fresh plan -> fresh trace
-        old = fused_dma._N_WIN_SLOTS
-        fused_dma._N_WIN_SLOTS = ns
-        try:
-            outs[ns] = np.asarray(
-                fused_dma.blur_fused_u8_dma(x, plan, precision="int8")
-            )
-        finally:
-            fused_dma._N_WIN_SLOTS = old
-    np.testing.assert_array_equal(outs[2], outs[3])
-
-
-def test_aligned_compute_bit_identical(rng):
-    """The aligned-compute mode (zero-padded bands, round-4 probe knob;
-    default off after the A/B refutation) reproduces the legacy sliced
-    compute bit for bit on the integer rungs."""
-    import numpy as np
-
-    import jax.numpy as jnp
-
-    from blur_algorithms_tpu.ops.plan import make_plan
-    from blur_algorithms_tpu.pallas_kernels import fused_dma
-
-    img = (rng.random((3, 48, 1024)) * 255).astype(np.uint8)
-    x = jnp.asarray(img)
-    outs = {}
-    for flag in (False, True):
-        plan = make_plan((48, 1024), 4.0)  # fresh plan -> fresh trace
-        old = fused_dma._ALIGNED_COMPUTE
-        fused_dma._ALIGNED_COMPUTE = flag
-        try:
-            outs[flag] = {
-                p: np.asarray(
-                    fused_dma.blur_fused_u8_dma(x, plan, precision=p)
-                )
-                for p in ("int8", "hybrid")
-            }
-        finally:
-            fused_dma._ALIGNED_COMPUTE = old
-    for p in ("int8", "hybrid"):
-        np.testing.assert_array_equal(outs[False][p], outs[True][p])
-
-
-def test_strip_dma_kernel_bit_identical(rng):
-    """The whole-strip splice kernel (round 4: each padded row strip
-    fetched once, windows unrolled from VMEM; perf-neutral on v5e, kept
-    via strip=True) reproduces the windowed direct kernel bit for bit."""
-    import numpy as np
-
-    import jax.numpy as jnp
-
-    from blur_algorithms_tpu.ops.plan import make_plan
-    from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-        _blur_fused_dma_impl,
-    )
-
-    img = (rng.random((3, 96, 1024)) * 255).astype(np.uint8)
-    x = jnp.asarray(img)
-    for prec in ("int8", "hybrid"):
-        direct = np.asarray(
-            _blur_fused_dma_impl(x, make_plan((96, 1024), 4.0), prec, True,
-                                 direct=True, strip=False)
-        )
-        strip = np.asarray(
-            _blur_fused_dma_impl(x, make_plan((96, 1024), 4.0), prec, True,
-                                 strip=True)
-        )
-        np.testing.assert_array_equal(direct, strip)
-
-
-def test_pipelined_dma_kernel_bit_identical(rng):
-    """The software-pipelined int8 DMA kernel (rows(j) grouped with
-    cols(j-1); measured perf-neutral, kept as an in-tree experiment) must
-    reproduce the plain kernel bit for bit."""
-    import numpy as np
-
-    import jax.numpy as jnp
-
-    from blur_algorithms_tpu.ops.plan import make_plan
-    from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-        _blur_fused_dma_impl,
-    )
-
-    img = (rng.random((3, 48, 1024)) * 255).astype(np.uint8)
-    x = jnp.asarray(img)
-    plain = np.asarray(
-        _blur_fused_dma_impl(x, make_plan((48, 1024), 4.0), "int8", True,
-                             direct=False)
-    )
-    pipe = np.asarray(
-        _blur_fused_dma_impl(x, make_plan((48, 1024), 4.0), "int8", True,
-                             pipelined=True)
-    )
-    np.testing.assert_array_equal(plain, pipe)
-
-
-def test_hybrid_split_pass2_interpret(rng, monkeypatch):
-    """The split's HYBRID pass 2 (bf16 dot on the int16-E intermediate,
-    round 3): <= 1 count vs the oracle and exact at constant levels."""
-    from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-    monkeypatch.setattr(fused_blur, "_FORCE_INTERPRET", True)
-    monkeypatch.setattr(fused_blur, "_hybrid_cols_ok", lambda plan: True)
-    img = (rng.random((64, 80, 3)) * 255).astype(np.uint8)
-    plan = make_plan((64, 80), 18.0)
-    planar = jnp.moveaxis(jnp.asarray(img), -1, -3)
-    got = np.asarray(
-        fused_blur._blur_fused_split(planar, plan, "int8", out_u8=True)
-    )
-    want = np.moveaxis(oracle.blur_u8(img, 18.0), -1, 0)
-    assert int(np.abs(got.astype(int) - want.astype(int)).max()) <= 1
-    for level in (0, 127, 255):
-        p2 = make_plan((32, 32), 6.0)
-        c = np.asarray(
-            fused_blur._blur_fused_split(
-                jnp.full((1, 32, 32), level, jnp.uint8), p2, "int8",
-                out_u8=True,
-            )
-        )
-        assert (c == level).all(), level
-
-
-def test_ablate_precisions_rejected_at_public_entry():
-    """The ablate_* decomposition probes (fetch/copy/rows ladders) never
-    masquerade as blurs through the public DMA entry point."""
-    from blur_algorithms_tpu.pallas_kernels import fused_dma
-
-    plan = make_plan((64, 256), 2.0)
-    x8 = jnp.zeros((1, 64, 256), jnp.uint8)
-    for p in ("ablate_fetch", "ablate_copy", "ablate_rows"):
-        with pytest.raises(ValueError, match="probe"):
-            fused_dma.blur_fused_u8_dma(x8, plan, precision=p)
-
-
-def test_hybrid_precision_validation():
-    from blur_algorithms_tpu.pallas_kernels import fused_blur
-
-    plan = make_plan((32, 32), 6.0)
-    x8 = jnp.zeros((1, 32, 32), jnp.uint8)
-    with pytest.raises(ValueError):  # hybrid is the e32-in pass only
-        fused_blur._blur_fused_planar(
-            x8, plan, (16, 16), "hybrid", out_u8=True
-        )
-
-
-def test_channel_folded_direct_dma_bit_identical(rng):
-    """Round-5 channel-folded DMA (one descriptor per window spanning all
-    channel planes, ``nch=3``) reproduces the per-plane direct kernel bit
-    for bit — same splice tables, same compute, 1/3 the descriptors."""
-    from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-        _blur_fused_dma_impl,
-    )
-
-    x = jnp.asarray((rng.random((2, 3, 96, 256)) * 255).astype(np.uint8))
-    for sigma, prec in ((2.0, "int8"), (6.0, "hybrid")):
-        plan = make_plan((96, 256), sigma)
-        a = np.asarray(
-            _blur_fused_dma_impl(x, plan, prec, True, direct=True)
-        )
-        b = np.asarray(
-            _blur_fused_dma_impl(x, plan, prec, True, direct=True, nch=3)
-        )
-        np.testing.assert_array_equal(a, b)
-
-
-def test_channel_fold_routes_single_frame_only(monkeypatch):
-    """nch=3 auto-routes for a single RGB frame on TPU (measured 1.21x at
-    single-4K sigma=10, dma_ch3_ab.json) and never for batches (3-20%
-    slower at batch >= 2)."""
-    import jax
-
-    from blur_algorithms_tpu.pallas_kernels import fused_dma
-
-    calls = []
-    real = fused_dma._dma_kernel_call_direct
-
-    def spy(x, plan, precision, out_u8, th, tw, cw, ch, n_slots=None,
-            nch=1):
-        calls.append(nch)
-        return real(x, plan, precision, out_u8, th, tw, cw, ch,
-                    n_slots=n_slots, nch=nch)
-
-    monkeypatch.setattr(fused_dma, "_dma_kernel_call_direct", spy)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    plan = make_plan((96, 256), 2.0)
-    x1 = jnp.zeros((3, 96, 256), jnp.uint8)   # single RGB frame
-    x2 = jnp.zeros((6, 96, 256), jnp.uint8)   # batch of 2
-    # interpret=False under the mocked backend: the pallas_call rejects
-    # off-chip lowering AFTER the routing decision was recorded
-    for x in (x1, x2):
-        try:
-            fused_dma._blur_fused_dma_impl.__wrapped__(
-                x, plan, "int8", True, direct=True
-            )
-        except Exception:
-            pass
-    assert calls == [3, 1]
-
-
-def test_strip_batch_gate_routes_measured_region_only(monkeypatch):
-    """Round-5 item 3: the whole-strip form auto-routes ONLY where it
-    measured faster (planes >= 9 AND r <= 32 — dma_strip_batch_gate.json
-    + dma_strip_ab.json); single frames and wide radii keep the windowed
-    direct form."""
-    import jax
-
-    from blur_algorithms_tpu.pallas_kernels import fused_dma
-
-    calls = []
-    monkeypatch.setattr(
-        fused_dma, "_dma_kernel_call_strip",
-        lambda *a, **k: calls.append("strip") or (_ for _ in ()).throw(
-            RuntimeError("stop")),
-    )
-    monkeypatch.setattr(
-        fused_dma, "_dma_kernel_call_direct",
-        lambda *a, **k: calls.append("direct") or (_ for _ in ()).throw(
-            RuntimeError("stop")),
-    )
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    plan10 = make_plan((2160, 3840), 10.0)   # r = 32
-    plan48 = make_plan((2160, 3840), 48.0)   # r = 159
-    big = jnp.zeros((12, 2160, 3840), jnp.uint8)   # batch-4 RGB
-    one = jnp.zeros((3, 2160, 3840), jnp.uint8)
-    for x, plan in ((big, plan10), (one, plan10), (big, plan48)):
-        try:
-            fused_dma._blur_fused_dma_impl.__wrapped__(
-                x, plan, "hybrid", True
-            )
-        except RuntimeError:
-            pass
-    assert calls == ["strip", "direct", "direct"]
-
-
-def test_resident_dma_kernel_bit_identical(rng):
-    """The rows-resident full-width kernel (round-5 verdict item 4: each
-    input byte fetched once, rows-pass output held in a VMEM ring across
-    strips) reproduces the windowed direct kernel bit for bit on both
-    int8-rows rungs — the co/ro zero-folded band operands keep every dot
-    bit-equal (``_ALIGNED_COMPUTE`` argument). Covers th < orh (several
-    pure-`top` warmup fetches), ragged heights, and a tail cols chunk."""
-    import numpy as np
-
-    import jax.numpy as jnp
-
-    from blur_algorithms_tpu.ops.plan import make_plan
-    from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-        _blur_fused_dma_impl,
-    )
-
-    cases = [
-        # (h, w, sigma, th): r=12 -> orh=16 > th=8 exercises warmup-only
-        # top fetches; 200/48 is ragged (ceil -> 5 strips, junk tail)
-        (96, 640, 4.0, 16),
-        (200, 384, 11.0, 48),
-        (104, 896, (2.0, 13.0), 24),  # anisotropic: rh != rw
-    ]
-    from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-        _dma_kernel_call_resident,
-    )
-
-    for h, w, sigma, th in cases:
-        plan = make_plan((h, w), sigma)
-        img = (rng.random((3, h, w)) * 255).astype(np.uint8)
-        x = jnp.asarray(img)
-        for prec in ("int8", "hybrid"):
-            ref = np.asarray(
-                _blur_fused_dma_impl(x, plan, prec, True, strip=False)
-            )
-            # the routed protocol (shift ring) through the public impl
-            res = np.asarray(
-                _blur_fused_dma_impl(x, plan, prec, True, tile=(th, 0),
-                                     resident=True)
-            )
-            np.testing.assert_array_equal(
-                ref, res, err_msg=f"{(h, w, sigma, th, prec)}"
-            )
-            # the double-write ring protocol (kept as the measured
-            # alternative; giant_resident_ab.json)
-            dbl = np.asarray(
-                _dma_kernel_call_resident(
-                    x, plan, prec, True, th, 128, 24, shift_ring=False
-                )[:, :h, :w]
-            )
-            np.testing.assert_array_equal(
-                ref, dbl, err_msg=f"double {(h, w, sigma, th, prec)}"
-            )
-
-
-def test_resident_applicable_gates():
-    """Geometry/rung gates of the resident form: int8-rows rungs only
-    (the ring stores the rows conv as bf16 / digit planes), u8 input
-    only, and the ring must fit the VMEM budget at giant widths."""
-    from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-        _pick_tile_resident,
-        _resident_applicable,
-    )
-    from blur_algorithms_tpu.ops.plan import make_plan
-
-    # the 348 MP sweep geometry: both rungs fit at the policy heights
-    assert _resident_applicable(24000, 14500, 160, 514, 514, 1, 1,
-                                "hybrid", False)
-    assert _resident_applicable(24000, 14500, 160, 514, 514, 1, 1,
-                                "int8", False)
-    # bf16x3 / bf16 rungs have no int8 rows pass -> not served
-    assert not _resident_applicable(24000, 14500, 160, 514, 514, 1, 1,
-                                    "bf16x3", False)
-    # float input is not served (the recentre assumes u8)
-    assert not _resident_applicable(24000, 14500, 160, 514, 514, 4, 4,
-                                    "hybrid", False)
-    # prepadded multi-chip shards keep the windowed form
-    assert not _resident_applicable(24000, 14500, 160, 514, 514, 1, 1,
-                                    "hybrid", True)
-    # the picker returns a feasible height at the giant point and
-    # refuses when even th=120 blows the budget (absurd radius)
-    plan = make_plan((24000, 14500), 155.0)
-    th = _pick_tile_resident(plan, "hybrid")
-    assert th is not None and th % 8 == 0
-    assert not _resident_applicable(24000, 14500, 120, 6000, 6000, 1, 1,
-                                    "hybrid", False)
+        x = rng.random((2, 40, 56)).astype(np.float32) * 255
+        plan = make_plan((40, 56), 3.0)
+        rh = plan.col.support_radius
+        haloed = reflect_101(jnp.asarray(x), [(rh, rh)], axes=[-2])
+        got = np.asarray(fused.blur_fused_haloed(haloed, plan))
+        np.testing.assert_allclose(got, oracle.blur_direct(x, plan), atol=1e-2)

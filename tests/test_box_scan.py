@@ -1,13 +1,14 @@
-"""Pallas prefix-sum box engine (XLA scan fallback on CPU) + routing."""
+"""The cumsum-difference box engine (``box_scan``) + routing."""
 
 import jax.numpy as jnp
 import numpy as np
 
-from blur_algorithms_tpu import Engine, blur_u8, oracle
-from blur_algorithms_tpu.api import _plan_for
-from blur_algorithms_tpu.pallas_kernels.box_blur_pallas import (
-    box_blur_pallas,
-    box_blur_pallas_axis,
+from blur_algorithms import Engine, blur_u8, oracle
+from blur_algorithms.api import _plan_for
+from blur_algorithms.ops.box_blur import (
+    box_blur_scan,
+    box_blur_scan_axis,
+    box_blur_scan_u8,
 )
 
 
@@ -23,13 +24,13 @@ def _naive_box_axis(x, r, axis):
 
 def test_single_pass_matches_naive(rng):
     x = rng.random((2, 24, 40)).astype(np.float32) * 255
-    got = np.asarray(box_blur_pallas_axis(jnp.asarray(x), 5, passes=1))
+    got = np.asarray(box_blur_scan_axis(jnp.asarray(x), 5, passes=1))
     np.testing.assert_allclose(got, _naive_box_axis(x, 5, -1), atol=1e-2)
 
 
 def test_two_passes_both_axes(rng):
     x = rng.random((3, 30, 26)).astype(np.float32) * 255
-    got = np.asarray(box_blur_pallas(jnp.asarray(x), 3, passes=2))
+    got = np.asarray(box_blur_scan(jnp.asarray(x), 3, passes=2))
     want = x.astype(np.float64)
     for _ in range(2):
         want = _naive_box_axis(want, 3, -1)
@@ -40,12 +41,12 @@ def test_two_passes_both_axes(rng):
 
 def test_zero_radius_identity(rng):
     x = rng.random((8, 9)).astype(np.float32)
-    np.testing.assert_allclose(np.asarray(box_blur_pallas(jnp.asarray(x), 0)), x)
+    np.testing.assert_allclose(np.asarray(box_blur_scan(jnp.asarray(x), 0)), x)
 
 
 def test_radius_clamped_to_axis(rng):
     x = rng.random((2, 6, 300)).astype(np.float32)
-    out = np.asarray(box_blur_pallas(jnp.asarray(x), 50, passes=2))
+    out = np.asarray(box_blur_scan(jnp.asarray(x), 50, passes=2))
     assert out.shape == x.shape
     assert np.isfinite(out).all()
 
@@ -85,16 +86,13 @@ def test_box_scan_u8_end_to_end(rng):
 
 
 def test_box_scan_u8_kernel_end_to_end(rng):
-    """box_blur_pallas_u8: u8 in / u8 out == float path + reference round."""
-    from blur_algorithms_tpu.pallas_kernels.box_blur_pallas import (
-        box_blur_pallas_u8,
-    )
+    """box_blur_scan_u8: u8 in / u8 out == float path + reference round."""
 
     x = (rng.random((3, 40, 56)) * 255).astype(np.uint8)
-    got = np.asarray(box_blur_pallas_u8(jnp.asarray(x), 4, passes=2))
+    got = np.asarray(box_blur_scan_u8(jnp.asarray(x), 4, passes=2))
     assert got.dtype == np.uint8
     want_f = np.asarray(
-        box_blur_pallas(jnp.asarray(x).astype(jnp.float32), 4, passes=2)
+        box_blur_scan(jnp.asarray(x).astype(jnp.float32), 4, passes=2)
     )
     want = np.clip(np.floor(want_f + 0.5), 0, 255).astype(np.uint8)
     diff = np.abs(got.astype(int) - want.astype(int))
@@ -102,11 +100,8 @@ def test_box_scan_u8_kernel_end_to_end(rng):
 
 
 def test_box_scan_u8_zero_radius(rng):
-    from blur_algorithms_tpu.pallas_kernels.box_blur_pallas import (
-        box_blur_pallas_u8,
-    )
 
     x = (rng.random((2, 16, 16)) * 255).astype(np.uint8)
     np.testing.assert_array_equal(
-        np.asarray(box_blur_pallas_u8(jnp.asarray(x), 0)), x
+        np.asarray(box_blur_scan_u8(jnp.asarray(x), 0)), x
     )

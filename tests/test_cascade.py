@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import Engine, blur_u8, oracle
-from blur_algorithms_tpu.ops.cascade import blur_cascade, cascade_sigmas
+from blur_algorithms import Engine, blur_u8, oracle
+from blur_algorithms.ops.cascade import blur_cascade, cascade_sigmas
 
 
 def test_sigma_split_preserves_variance():
@@ -31,8 +31,8 @@ def test_cascade_close_to_exact_blur(rng):
     # force a multi-step split on a small image by lowering the step cap:
     # per-axis clamps kick in for both paths, compare against the exact
     # oracle loosely
-    from blur_algorithms_tpu.ops import cascade as cascade_mod
-    from blur_algorithms_tpu.ops.plan import make_plan
+    from blur_algorithms.ops import cascade as cascade_mod
+    from blur_algorithms.ops.plan import make_plan
 
     x = rng.random((300, 280)).astype(np.float32) * 255
     sigma = 80.0

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import oracle
-from blur_algorithms_tpu.models.channel_smooth import channel_smooth
+from blur_algorithms import oracle
+from blur_algorithms.models.channel_smooth import channel_smooth
 
 
 def test_rgb_recipe_per_channel(rgb_image):
@@ -50,7 +50,7 @@ def test_single_program_per_recipe(rng):
     """The whole recipe compiles once per (shape, sigmas) — no host hops."""
     import importlib
 
-    cs = importlib.import_module("blur_algorithms_tpu.models.channel_smooth")
+    cs = importlib.import_module("blur_algorithms.models.channel_smooth")
 
     cs._compiled_recipe.cache_clear()
     img = (rng.random((32, 40, 3)) * 255).astype(np.uint8)
@@ -62,7 +62,7 @@ def test_single_program_per_recipe(rng):
 
 
 def test_zero_sigma_channel_untouched_fused_program(rng):
-    from blur_algorithms_tpu.models.channel_smooth import channel_smooth
+    from blur_algorithms.models.channel_smooth import channel_smooth
 
     img = (rng.random((24, 24, 3)) * 255).astype(np.uint8)
     out = channel_smooth(img, (0, 5.0, None))

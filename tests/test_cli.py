@@ -6,8 +6,8 @@ import sys
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu.cli import main
-from blur_algorithms_tpu.utils import io
+from blur_algorithms.cli import main
+from blur_algorithms.utils import io
 
 
 @pytest.fixture
@@ -64,7 +64,7 @@ def test_bad_flag_exits(ppm_image):
 def test_module_invocation(ppm_image, tmp_path):
     out = tmp_path / "m.ppm"
     proc = subprocess.run(
-        [sys.executable, "-m", "blur_algorithms_tpu", "band", "4", str(ppm_image),
+        [sys.executable, "-m", "blur_algorithms", "band", "4", str(ppm_image),
          "-o", str(out)],
         capture_output=True, text=True, timeout=600,
         env={**__import__("os").environ, "JAX_PLATFORMS": "cpu"},
@@ -106,7 +106,7 @@ def test_sigmas_sweep_mode(ppm_image, tmp_path, rgb_image):
     out = tmp_path / "sweep.ppm"
     assert main(["auto", "1", str(ppm_image), "-o", str(out),
                  "--sigmas", "2", "5.5"]) == 0
-    from blur_algorithms_tpu import oracle
+    from blur_algorithms import oracle
 
     for s, tag in ((2.0, "2"), (5.5, "5p5")):
         got = io.read_image(str(tmp_path / f"sweep_s{tag}.ppm"))

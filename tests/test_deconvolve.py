@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import blur
-from blur_algorithms_tpu.models.deconvolve import wiener_deconvolve
-from blur_algorithms_tpu.ops.fft_conv import _mirror_full
-from blur_algorithms_tpu.ops.pad import reflect_101
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms import blur
+from blur_algorithms.models.deconvolve import wiener_deconvolve
+from blur_algorithms.ops.fft_conv import _mirror_full
+from blur_algorithms.ops.pad import reflect_101
+from blur_algorithms.ops.plan import make_plan
 
 
 @pytest.fixture(scope="module")
@@ -89,7 +89,7 @@ def test_rejects_asymmetric_kernel(monkeypatch):
     # against future kernel kinds with complex spectra
     import dataclasses
 
-    import blur_algorithms_tpu.models.deconvolve as dc
+    import blur_algorithms.models.deconvolve as dc
 
     real = dc.make_plan
 

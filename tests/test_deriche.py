@@ -9,9 +9,9 @@ pocketfft oracle (``oracle.blur_planar_fft2``).
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import api, oracle
-from blur_algorithms_tpu.ops import deriche
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms import api, oracle
+from blur_algorithms.ops import deriche
+from blur_algorithms.ops.plan import make_plan
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +45,7 @@ def test_f32_parity_vs_oracle(frame):
 
 def test_taps_match_truncated_gaussian():
     # near-field taps track the reference's sampled Gaussian closely
-    from blur_algorithms_tpu.ops.kernels import gaussian_kernel, gaussian_window
+    from blur_algorithms.ops.kernels import gaussian_kernel, gaussian_window
 
     sigma = 20.0
     taps = deriche.deriche_taps(sigma)
@@ -83,9 +83,7 @@ def test_api_rejects_non_gaussian():
 
 
 def test_auto_never_routes_deriche():
-    # measured on v5e: the fused int8/DMA kernel beats deriche at every
-    # reachable radius (width clamps to the largest dim), and fft_mxu beats
-    # it past the fused crossover — AUTO must keep ignoring the engine
+    # deriche is an explicit engine: AUTO never routes it, at any radius
     for shape, sigma in [((4000, 3000), 260.0), ((5120, 5120), 1000.0)]:
         plan = make_plan(shape, sigma)
         for in_bytes in (1, 4):

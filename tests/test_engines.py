@@ -1,12 +1,12 @@
-"""TPU engines vs the CPU pocketfft oracle and vs each other."""
+"""The engines vs the CPU pocketfft oracle and vs each other."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import Engine, blur, blur_u8, box_blur, oracle
-from blur_algorithms_tpu.ops.box_blur import box_blur_planar
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms import Engine, blur, blur_u8, box_blur, oracle
+from blur_algorithms.ops.box_blur import box_blur_planar
+from blur_algorithms.ops.plan import make_plan
 
 SIGMAS = [2.0, 10.0, 50.0]
 ENGINES = [Engine.FFT2, Engine.FFT_TILES, Engine.CONV, Engine.BAND, Engine.FUSED]
@@ -93,7 +93,7 @@ class TestBoxBlur:
 
     def test_single_axis_matches_naive(self, rng):
         x = rng.random((5, 40)).astype(np.float32) * 255
-        from blur_algorithms_tpu.ops.box_blur import box_blur_axis
+        from blur_algorithms.ops.box_blur import box_blur_axis
 
         got = np.asarray(box_blur_axis(jnp.asarray(x), 4, -1))
         np.testing.assert_allclose(got, self._naive_box_1d(x, 4), atol=1e-2)

@@ -1,25 +1,25 @@
-"""MXU four-step FFT convolution engine (einsum form + Pallas kernel)."""
+"""Four-step matmul-DFT convolution engine (``fft_mxu``, XLA einsums)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import Engine, oracle
-from blur_algorithms_tpu.api import _resolve_engine
-from blur_algorithms_tpu.ops.fft_mxu import (
+from blur_algorithms import Engine, oracle
+from blur_algorithms.api import _resolve_engine
+from blur_algorithms.ops.fft_mxu import (
     _factor,
     blur_fft_mxu,
     estimate_bytes,
 )
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms.ops.plan import make_plan
 
 
 def test_factor_contract():
     # small pow2: balanced near-sqrt stages
     assert _factor(256) == (16, 16)
     assert _factor(1024) == (32, 32)
-    # composite lengths (128 * m): stage 1 locked to full MXU tiles
+    # composite lengths (128 * m): stage 1 locked to 128-wide tiles
     assert _factor(8192) == (128, 64)
     assert _factor(16384) == (128, 128)
     assert _factor(5120) == (128, 40)
@@ -30,7 +30,7 @@ def test_factor_contract():
 
 
 def test_transform_length_composite():
-    from blur_algorithms_tpu.ops.fft_mxu import transform_length
+    from blur_algorithms.ops.fft_mxu import transform_length
 
     plan = make_plan((2160, 3840), 160.0)  # rows need 3840 + 2*531 = 4902
     n = transform_length(plan.row)
@@ -50,121 +50,62 @@ def test_einsum_form_matches_oracle(rng, sigma):
         assert np.abs(got - want).max() < 0.02
 
 
-def test_pallas_kernel_interpret(rng):
-    """Full fused pipeline through the Pallas interpreter (CPU)."""
-    from blur_algorithms_tpu.pallas_kernels.fft4step import blur_fft_mxu_pallas
-
-    x = rng.random((2, 50, 70)).astype(np.float32) * 255
-    plan = make_plan((50, 70), 5.0)
-    got = np.asarray(blur_fft_mxu_pallas(jnp.asarray(x), plan))
-    want = oracle.blur_direct(x, plan)
-    assert np.abs(got - want).max() < 0.02
-
-
-def test_odd_row_count_pads_cleanly(rng):
-    """R odd -> one zero row rides the last complex transform."""
-    from blur_algorithms_tpu.pallas_kernels.fft4step import blur_fft_mxu_pallas
-
-    x = rng.random((3, 25, 40)).astype(np.float32) * 255  # 75 rows: odd
-    plan = make_plan((25, 40), 2.0)
-    got = np.asarray(blur_fft_mxu_pallas(jnp.asarray(x), plan))
-    want = oracle.blur_direct(x, plan)
-    assert got.shape == x.shape
-    assert np.abs(got - want).max() < 0.02
-
-
-def test_pallas_path_is_differentiable(rng):
-    """jax.grad through the fft_mxu Pallas engine (explicit adjoint vjp)."""
-    from blur_algorithms_tpu.pallas_kernels.fft4step import blur_fft_mxu_pallas
-
-    x = jnp.asarray(rng.random((20, 30)).astype(np.float32))
-    plan = make_plan((20, 30), 2.0)
-    g = jax.grad(lambda v: jnp.sum(blur_fft_mxu_pallas(v, plan) ** 2))(x)
-    assert g.shape == x.shape
-    # finite-difference check on one coordinate
-    eps = 1e-2
-    f = lambda v: float(jnp.sum(blur_fft_mxu_pallas(v, plan) ** 2))
-    dx = jnp.zeros_like(x).at[7, 11].set(eps)
-    fd = (f(x + dx) - f(x - dx)) / (2 * eps)
-    assert abs(fd - float(g[7, 11])) < 5e-2 * max(1.0, abs(fd))
-
-
 def test_auto_routes_giant_radius_to_fft_mxu():
-    # past the round-5 fused crossover (~1550 with the framed fft form)
-    # the MXU FFT owns whole-frame-feasible sizes; below it the int8-e32
-    # split keeps the banded path
-    mid = make_plan((8192, 8192), 900.0)  # r ~ 2995 > 1550, FFT fits HBM
-    assert _resolve_engine(Engine.AUTO, mid) is Engine.FFT_MXU
-    below = make_plan((8192, 8192), 308.0)  # r ~ 1024 < 1550
+    """Past the band/FFT crossover AUTO takes the FFT: ``fft_tiles``
+    (measured faster than this engine's matmul DFT at radius 1024 and 2048
+    on an H100), strip-streamed once the whole-frame transform
+    intermediates outgrow the device budget. ``fft_mxu`` stays an explicit
+    engine."""
+    from blur_algorithms.ops.streamed import estimate_fft_tiles_bytes
+    from blur_algorithms.utils.hw import budgets
+
+    r_max = budgets().auto_fused_max_radius_u8
+    mid = make_plan((8192, 8192), 900.0)
+    assert mid.row.support_radius > r_max
+    assert _resolve_engine(Engine.AUTO, mid) is Engine.FFT_TILES
+    below = make_plan((8192, 8192), 20.0)
+    assert below.row.support_radius <= r_max
     assert _resolve_engine(Engine.AUTO, below) is Engine.FUSED
-    plan = make_plan((16384, 16384), 1200.0)
-    assert plan.col.support_radius > 3500
-    assert _resolve_engine(Engine.AUTO, plan) is Engine.FFT_MXU
-    # 348 MP at r ~ 2995: the FFT side would have to STRIP-STREAM
-    # (intermediates > the HBM budget), where the banded path stays
-    # profitable to the streamed crossover (~3500): the int16-E split
-    # fits HBM (measured 341 ms vs the streamed FFT's ~500) so u8 stays
-    # FUSED; floats cross at the (streamed) f32 crossover ~2560
-    giant = make_plan((14500, 24000), 900.0)
-    assert _resolve_engine(Engine.AUTO, giant, in_bytes=1) is Engine.FUSED
-    assert _resolve_engine(Engine.AUTO, giant, in_bytes=4) is Engine.FFT_MXU
-    # frames whose padded-row intermediates outgrow HBM stay on fft_mxu
-    # (the engine strip-streams internally past the byte budget)
-    giant = make_plan((24000, 14500), 1500.0)
-    assert estimate_bytes(giant) > 10 << 30
-    assert _resolve_engine(Engine.AUTO, giant) is Engine.FFT_MXU
+    giant = make_plan((14500, 24000), 155.0)
+    assert _resolve_engine(Engine.AUTO, giant) is Engine.FFT_TILES
+    # a batch of 24 giant planes outgrows the budget: strips
+    assert estimate_fft_tiles_bytes(giant, 24) > budgets().fft_mxu_byte_budget
+    assert _resolve_engine(Engine.AUTO, giant, lead=24) is Engine.FFT_STREAM
 
 
-def test_streamed_mxu_matches_whole(rng):
-    """Strip-streamed MXU FFT == whole-frame result (interpret/CPU path)."""
-    from blur_algorithms_tpu.ops.streamed import blur_fft_mxu_streamed
-    from blur_algorithms_tpu.pallas_kernels.fft4step import blur_fft_mxu_pallas
+def test_fft_mxu_streams_frames_past_the_budget(rng, monkeypatch):
+    """An explicit fft_mxu request on a frame whose padded rows outgrow the
+    byte budget runs the strip-streamed tiles path (same result)."""
+    import dataclasses
 
-    x = rng.random((2, 60, 90)).astype(np.float32) * 255
-    plan = make_plan((60, 90), 8.0)
-    whole = np.asarray(blur_fft_mxu_pallas(jnp.asarray(x), plan))
-    streamed = np.asarray(blur_fft_mxu_streamed(jnp.asarray(x), plan, strip=16))
-    np.testing.assert_allclose(streamed, whole, atol=1e-2)
+    from blur_algorithms import api
+    from blur_algorithms.ops.fft_conv import blur_fft_tiles
+    from blur_algorithms.utils import hw
+
+    tiny = dataclasses.replace(hw.CPU, hbm_bytes=1024)
+    monkeypatch.setattr(hw, "budgets", lambda: tiny)
+    x = jnp.asarray(rng.random((2, 40, 56)).astype(np.float32) * 255)
+    plan = make_plan((40, 56), 4.0)
+    got = np.asarray(api._blur_planar(x, plan, Engine.FFT_MXU))
+    want = np.asarray(blur_fft_tiles(x, plan))
+    np.testing.assert_allclose(got, want, atol=1e-3)
 
 
 def test_auto_float_crossover_is_lower():
-    """Float inputs cannot ride the int8-e32 split, so AUTO hands them to
-    the radius-independent MXU FFT earlier than uint8 frames."""
-    plan = make_plan((8192, 8192), 435.0)  # r ~ 1447: between 1400/1550
-    assert _resolve_engine(Engine.AUTO, plan, in_bytes=1) is Engine.FUSED
-    assert _resolve_engine(Engine.AUTO, plan, in_bytes=4) is Engine.FFT_MXU
+    """AUTO's float and uint8 crossovers come from the device table: a
+    radius at the crossover stays on the band route for both, one past it
+    goes to the FFT for both."""
+    from blur_algorithms.utils.hw import budgets
+
+    b = budgets()
+    for in_bytes, r_max in ((1, b.auto_fused_max_radius_u8),
+                            (4, b.auto_fused_max_radius_f32)):
+        s = (r_max + 1) / 3.33
+        while make_plan((4096, 4096), s).row.support_radius <= r_max:
+            s += 0.05
+        past = make_plan((4096, 4096), s)
+        assert _resolve_engine(Engine.AUTO, past, in_bytes) is Engine.FFT_TILES
+        at = make_plan((4096, 4096), 10.0)
+        assert _resolve_engine(Engine.AUTO, at, in_bytes) is Engine.FUSED
 
 
-def test_framed_form_matches_einsum(rng):
-    """Round-5 in-kernel-framing form: same values as the einsum twin at
-    the smallest framed-applicable geometry (n=4096), f32 tolerance (the
-    framed factorization is (n/128, 128), so bf16x3 summation order
-    differs from both the einsum and the pre-rotated Pallas form)."""
-    from blur_algorithms_tpu.ops.fft_mxu import blur_fft_mxu, transform_length
-    from blur_algorithms_tpu.pallas_kernels import fft4step
-
-    h, w, sig = 1100, 1100, 400.0
-    plan = make_plan((h, w), sig)
-    n = transform_length(plan.row)
-    assert fft4step.framed_applicable(n)
-    x = jnp.asarray(rng.random((1, h, w)).astype(np.float32) * 255)
-    old = fft4step._FRAMED
-    fft4step._FRAMED = True
-    try:
-        a = np.asarray(fft4step.blur_fft_mxu_pallas(x, plan))
-    finally:
-        fft4step._FRAMED = old
-    b = np.asarray(blur_fft_mxu(x, plan))
-    np.testing.assert_allclose(a, b, atol=5e-2)
-
-
-def test_framed_applicable_gates():
-    """Short transforms (n1 < 32 at the swapped factorization) keep the
-    pre-rotated form; every wide-radius production length qualifies."""
-    from blur_algorithms_tpu.pallas_kernels.fft4step import framed_applicable
-
-    assert not framed_applicable(2048)
-    assert not framed_applicable(2176)
-    assert framed_applicable(4096)
-    assert framed_applicable(15360)
-    assert framed_applicable(16384)

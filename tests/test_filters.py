@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import oracle
-from blur_algorithms_tpu.models import high_pass, unsharp_mask
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms import oracle
+from blur_algorithms.models import high_pass, unsharp_mask
+from blur_algorithms.ops.plan import make_plan
 
 
 def _oracle_unsharp(img_hwc: np.ndarray, sigma: float, amount: float,

@@ -2,8 +2,8 @@
 
 A cheap randomized safety net on top of the structured parity grids —
 odd/even dims, elongated frames, radii at the per-axis clamp, every planar
-engine. All cases run on the CPU backend (TPU certification lives in
-``benchmarks/parity_grid.py``).
+engine. All cases run on the CPU backend (the same grid runs on any
+device through ``benchmarks/parity_grid.py``).
 """
 
 import numpy as np
@@ -11,7 +11,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from blur_algorithms_tpu import Engine, blur_u8, oracle
+from blur_algorithms import Engine, blur_u8, oracle
 
 ENGINES = [
     Engine.FFT2,

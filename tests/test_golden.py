@@ -7,9 +7,9 @@ math, padding geometry, rounding, or spectrum indexing.
 
 import numpy as np
 
-from blur_algorithms_tpu import oracle
-from blur_algorithms_tpu.ops import kernels
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms import oracle
+from blur_algorithms.ops import kernels
+from blur_algorithms.ops.plan import make_plan
 
 
 def _fixed_image(h=64, w=80, c=3):

@@ -5,7 +5,7 @@ import math
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu.ops import kernels
+from blur_algorithms.ops import kernels
 
 
 class TestGaussianWindow:

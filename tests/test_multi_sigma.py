@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import oracle
-from blur_algorithms_tpu.ops.multi_sigma import (
+from blur_algorithms import oracle
+from blur_algorithms.ops.multi_sigma import (
     _compiled_multi,
     blur_multi_sigma,
     blur_multi_sigma_u8,
 )
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms.ops.plan import make_plan
 
 
 @pytest.fixture(scope="module")

@@ -3,12 +3,17 @@
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import oracle
-from blur_algorithms_tpu.utils import native
+from blur_algorithms import oracle
+from blur_algorithms.utils import native
 
-needs_native = pytest.mark.skipif(
-    not native.available(), reason="libblurfx.so not built (make -C native)"
-)
+@pytest.fixture(scope="module")
+def built():
+    """The native library, built from native/blurfx.cpp when missing."""
+    if not native.available() and not native.build():
+        pytest.skip("libblurfx.so could not be built (make -C native)")
+
+
+needs_native = pytest.mark.usefixtures("built")
 
 
 @needs_native

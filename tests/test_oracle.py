@@ -4,8 +4,8 @@ near-identity at tiny sigma, separability)."""
 
 import numpy as np
 
-from blur_algorithms_tpu import oracle
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms import oracle
+from blur_algorithms.ops.plan import make_plan
 
 
 def test_fft2_matches_direct_convolution(rng):
@@ -84,7 +84,7 @@ def test_opencv_gaussian_parity(rgb_image):
     outputs should agree within quantization."""
     import cv2
 
-    from blur_algorithms_tpu.ops.kernels import gaussian_window
+    from blur_algorithms.ops.kernels import gaussian_window
 
     sigma = 4.0
     width = gaussian_window(sigma, max(rgb_image.shape[:2]))

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from blur_algorithms_tpu.oracle import reflect_101_np
-from blur_algorithms_tpu.ops.layout import from_planar, to_planar
-from blur_algorithms_tpu.ops.pad import clamp_pad, reflect_101
+from blur_algorithms.oracle import reflect_101_np
+from blur_algorithms.ops.layout import from_planar, to_planar
+from blur_algorithms.ops.pad import clamp_pad, reflect_101
 
 
 class TestReflect101:

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import Engine, blur, blur_u8, oracle
-from blur_algorithms_tpu.ops.fft_conv import _pffft_quirked
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms import Engine, blur, blur_u8, oracle
+from blur_algorithms.ops.fft_conv import _pffft_quirked
+from blur_algorithms.ops.plan import make_plan
 
 
 def test_quirked_spectrum_edits_only_nyquist():
@@ -89,7 +89,7 @@ def test_pffft_smooth_images_within_one_count(rgb_image):
 
 
 def test_pffft_rejects_asymmetric_taps():
-    from blur_algorithms_tpu import convolve_separable
+    from blur_algorithms import convolve_separable
 
     x = jnp.zeros((3, 32, 32), jnp.float32)
     with pytest.raises(ValueError, match="symmetric"):
@@ -99,8 +99,8 @@ def test_pffft_rejects_asymmetric_taps():
 
 
 def test_cli_accepts_pffft_name(tmp_path, rgb_image):
-    from blur_algorithms_tpu import cli
-    from blur_algorithms_tpu.utils import io
+    from blur_algorithms import cli
+    from blur_algorithms.utils import io
 
     src = tmp_path / "in.ppm"
     io.write_image(str(src), rgb_image)

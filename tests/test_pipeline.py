@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import oracle
-from blur_algorithms_tpu.models import FastBoxBlur, GaussianBlur, SpectrumAnalyzer
+from blur_algorithms import oracle
+from blur_algorithms.models import FastBoxBlur, GaussianBlur, SpectrumAnalyzer
 
 
 def _img(rng, h, w):
@@ -95,7 +95,7 @@ def test_stream_matches_per_frame_calls(rng):
 
 
 def test_stream_reads_paths(rng, tmp_path):
-    from blur_algorithms_tpu.utils.io import write_image
+    from blur_algorithms.utils.io import write_image
 
     pipe = GaussianBlur(2.0, exact=True)
     paths = []
@@ -106,7 +106,7 @@ def test_stream_reads_paths(rng, tmp_path):
     out = dict(pipe.stream(paths, prefetch=3))
     assert set(out) == set(paths)
     for p in paths:
-        from blur_algorithms_tpu.utils.io import read_image
+        from blur_algorithms.utils.io import read_image
 
         want = oracle.blur_u8(read_image(p), 2.0)
         assert np.abs(np.asarray(out[p]).astype(int) - want.astype(int)).max() <= 1
@@ -122,7 +122,7 @@ def test_stream_empty_and_single(rng):
 
 def test_stream_host_pad_matches_direct_call(rng, tmp_path):
     """Bucketed stream (host-side native reflect pad) == direct __call__."""
-    from blur_algorithms_tpu.models.pipeline import BlurPipeline
+    from blur_algorithms.models.pipeline import BlurPipeline
 
     frames = [
         (rng.random((100, 130, 3)) * 255).astype(np.uint8),
@@ -142,7 +142,7 @@ def test_stream_reuses_warmup_program(rng):
     margin-inclusive ``_bucketed`` is not idempotent, so without the
     ``prebucketed`` marker a bucket-shaped frame would re-bucket to the
     next larger target and compile a second program on a live request."""
-    from blur_algorithms_tpu.models.pipeline import BlurPipeline
+    from blur_algorithms.models.pipeline import BlurPipeline
 
     pipe = BlurPipeline(3.0, bucket=64)
     pipe.warmup([(100, 130), (60, 200)])
@@ -162,8 +162,8 @@ def test_native_reflect_matches_device_pad(rng):
     """native/blurfx.cpp reflect-101 == the XLA reflect_101 (incl. clamp)."""
     import jax.numpy as jnp
 
-    from blur_algorithms_tpu.ops.pad import reflect_101
-    from blur_algorithms_tpu.utils import native
+    from blur_algorithms.ops.pad import reflect_101
+    from blur_algorithms.utils import native
 
     arr = (rng.random((5, 7, 3)) * 255).astype(np.uint8)
     for pads in [((0, 3), (0, 2)), ((2, 6), (4, 9))]:  # incl. > dim-1 clamp

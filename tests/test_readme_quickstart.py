@@ -7,7 +7,7 @@ import numpy as np
 def test_library_quickstart(rng):
     img_u8_hwc = jnp.asarray((rng.random((64, 48, 3)) * 255).astype(np.uint8))
 
-    from blur_algorithms_tpu import gaussian_blur, box_blur, dft_spectrum
+    from blur_algorithms import gaussian_blur, box_blur, dft_spectrum
 
     out = gaussian_blur(img_u8_hwc, sigma=10.0)
     assert out.shape == img_u8_hwc.shape
@@ -23,8 +23,8 @@ def test_multichip_quickstart(rng):
     batch_u8_bhwc = jnp.asarray((rng.random((8, 128, 48, 3)) * 255).astype(np.uint8))
     hw = (128, 48)
 
-    from blur_algorithms_tpu.parallel import make_mesh, blur_sharded_u8
-    from blur_algorithms_tpu.ops.plan import make_plan
+    from blur_algorithms.parallel import make_mesh, blur_sharded_u8
+    from blur_algorithms.ops.plan import make_plan
 
     mesh = make_mesh(dp=4, sp=2)
     out = blur_sharded_u8(batch_u8_bhwc, make_plan(hw, 10.0), mesh)
@@ -32,7 +32,7 @@ def test_multichip_quickstart(rng):
 
 
 def test_pipeline_warmup(rng):
-    from blur_algorithms_tpu.models import GaussianBlur
+    from blur_algorithms.models import GaussianBlur
 
     pipe = GaussianBlur(2.0, bucket=64)
     pipe.warmup([(50, 60), (100, 110)])

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blur_algorithms_tpu import Engine, blur, blur_u8, box_blur
+from blur_algorithms import Engine, blur, blur_u8, box_blur
 
 ENGINES = [Engine.FFT2, Engine.FFT_TILES, Engine.BAND, Engine.FUSED]
 
@@ -72,38 +72,6 @@ def test_engine_string_names():
     for name in ["fft2", "fft_tiles", "band", "fused", "auto", "conv"]:
         out = blur_u8(img, 2.0, engine=name)
         assert out.shape == img.shape
-
-
-def test_precision_arg_validated():
-    """Round-4 advisor: an unknown precision string must raise, never
-    silently compute another rung; pinning it on a non-fused engine
-    raises too."""
-    img = jnp.zeros((16, 16, 3), jnp.uint8)
-    with pytest.raises(ValueError, match="precision"):
-        blur_u8(img, 2.0, precision="in8")  # typo of 'int8'
-    with pytest.raises(ValueError, match="precision"):
-        blur_u8(img, 2.0, precision="ablate_fetch")  # probe rung
-    with pytest.raises(ValueError, match="fused"):
-        blur_u8(img, 2.0, engine=Engine.FFT2, precision="int8")
-
-
-def test_precision_hybrid_pin_raises_where_dma_cannot_serve():
-    """An explicit 'hybrid' pin is honored or refused — never silently
-    rewritten to blocked int8 (the hybrid rung exists only in the
-    exact-window DMA form, which is TPU-only and geometry-gated)."""
-    import jax
-
-    from blur_algorithms_tpu.pallas_kernels.fused_dma import (
-        dma_form_applicable,
-    )
-    from blur_algorithms_tpu.ops.plan import make_plan
-
-    plan = make_plan((64, 64), 3.0)
-    if dma_form_applicable(jnp.uint8, plan, "hybrid"):
-        pytest.skip("DMA form serves this geometry here (TPU run)")
-    img = jnp.zeros((64, 64, 3), jnp.uint8)
-    with pytest.raises(ValueError, match="hybrid"):
-        blur_u8(img, 3.0, precision="hybrid")
 
 
 def test_bfloat16_planar_input(rng):

@@ -17,8 +17,8 @@ import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "examples"))
 
-from blur_algorithms_tpu import oracle
-from blur_algorithms_tpu.utils.io import decode_image, encode_image
+from blur_algorithms import oracle
+from blur_algorithms.utils.io import decode_image, encode_image
 
 
 @pytest.fixture(scope="module")

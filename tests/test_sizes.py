@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from blur_algorithms_tpu.ops import sizes
+from blur_algorithms.ops import sizes
 
 
 def _ref_is_valid(n: int) -> bool:
@@ -57,23 +57,15 @@ def test_plan_modes():
     np.testing.assert_raises(ValueError, sizes.plan_fft_size, 10, "bogus")
 
 
-def test_plan_fft_size_auto_mode(monkeypatch):
-    """auto = smooth235 off-TPU; pow2 at EVERY length on TPU.
+def test_plan_fft_size_auto_mode():
+    """auto = smooth235, the reference's padding policy, on every backend;
+    pow2 stays an explicit mode."""
+    from blur_algorithms.ops import sizes
 
-    Non-pow2 XLA TPU FFT compiles are a multi-minute lottery even at small
-    multiple-of-32 smooth sizes (measured 455 s at (320, 480)) — auto must
-    never plan one on a TPU backend.
-    """
-    monkeypatch.setattr(sizes, "_backend_is_tpu", lambda: False)
-    assert sizes.plan_fft_size(1000, "auto") == sizes.plan_fft_size(1000, "smooth235")
-    assert sizes.plan_fft_size(30000, "auto") == sizes.plan_fft_size(30000, "smooth235")
-    monkeypatch.setattr(sizes, "_backend_is_tpu", lambda: True)
-    # 480: smooth235 would keep it (is_valid_size), auto must NOT
-    assert sizes.plan_fft_size(480, "auto") == 512
-    # 1050: smooth235 -> 1152, pow2 -> 2048
-    assert sizes.plan_fft_size(1050, "auto") == 2048
-    assert sizes.plan_fft_size(5000, "auto") == 8192
-    assert sizes.plan_fft_size(30000, "auto") == 32768
+    for n in (480, 1000, 1050, 5000, 30000):
+        assert sizes.plan_fft_size(n, "auto") == sizes.plan_fft_size(n, "smooth235")
+    assert sizes.plan_fft_size(480, "auto") == 480
+    assert sizes.plan_fft_size(480, "pow2") == 512
 
 
 def test_auto_is_default_mode():

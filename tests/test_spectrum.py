@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from blur_algorithms_tpu import dft_spectrum, oracle
-from blur_algorithms_tpu.ops.plan import make_plan
+from blur_algorithms import dft_spectrum, oracle
+from blur_algorithms.ops.plan import make_plan
 
 
 def test_matches_numpy_oracle(rng):
@@ -35,7 +35,7 @@ def test_dc_dominates_at_center(rng):
 def test_blur_attenuates_high_frequencies(rgb_image):
     """The reference's spectrum-analysis sweep in test image form: blurring
     must lower off-center (high-frequency) energy."""
-    from blur_algorithms_tpu import blur_u8
+    from blur_algorithms import blur_u8
 
     sharp = np.asarray(dft_spectrum(jnp.asarray(rgb_image), 1.0))
     blurred_img = blur_u8(jnp.asarray(rgb_image), 6.0)

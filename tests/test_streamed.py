@@ -3,11 +3,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from blur_algorithms_tpu import Engine
-from blur_algorithms_tpu.api import _resolve_engine
-from blur_algorithms_tpu.ops.fft_conv import blur_fft_tiles
-from blur_algorithms_tpu.ops.plan import make_plan
-from blur_algorithms_tpu.ops.streamed import (
+from blur_algorithms import Engine
+from blur_algorithms.api import _resolve_engine
+from blur_algorithms.ops.fft_conv import blur_fft_tiles
+from blur_algorithms.ops.plan import make_plan
+from blur_algorithms.ops.streamed import (
     blur_fft_tiles_streamed,
     estimate_fft_tiles_bytes,
 )
@@ -40,21 +40,20 @@ def test_memory_estimate_scales():
 
 
 def test_auto_routing_by_radius_and_size():
-    # r ~ 514: the multi-block fused MXU kernel now owns this (measured 2
-    # GP/s vs fft_stream's 0.27 GP/s at 348 MP)
+    # r ~ 514 at 348 MP: past the band crossover, and one RGB frame's
+    # transform intermediates fit the device budget -> whole-frame FFT
     giant = make_plan((24000, 14500), 155.0)
-    assert _resolve_engine(Engine.AUTO, giant) is Engine.FUSED
-    # r ~ 4990 > fused crossover -> the MXU FFT (streams internally)
-    colossal = make_plan((24000, 14500), 1500.0)
-    assert _resolve_engine(Engine.AUTO, colossal) is Engine.FFT_MXU
+    assert _resolve_engine(Engine.AUTO, giant) is Engine.FFT_TILES
+    # a batch of 8 such frames does not fit -> strip-streamed FFT
+    assert _resolve_engine(Engine.AUTO, giant, lead=24) is Engine.FFT_STREAM
     normal = make_plan((1080, 1920), 10.0)
     assert _resolve_engine(Engine.AUTO, normal) is Engine.FUSED
 
 
 def test_strip_larger_than_axis(rng):
     """strip > the sliced axis: clamps to one whole strip (no pad copy)."""
-    from blur_algorithms_tpu.ops.streamed import blur_fft_tiles_streamed_u8
-    from blur_algorithms_tpu import oracle
+    from blur_algorithms.ops.streamed import blur_fft_tiles_streamed_u8
+    from blur_algorithms import oracle
 
     img = (rng.random((40, 56, 3)) * 255).astype(np.uint8)
     plan = make_plan((40, 56), 4.0)
@@ -67,8 +66,8 @@ def test_strip_larger_than_axis(rng):
 def test_clamped_last_strip_overlap(rng):
     """Non-dividing strip: the clamped last strip rewrites overlap rows
     with identical values (u8 path, both axes)."""
-    from blur_algorithms_tpu.ops.streamed import blur_fft_tiles_streamed_u8
-    from blur_algorithms_tpu import oracle
+    from blur_algorithms.ops.streamed import blur_fft_tiles_streamed_u8
+    from blur_algorithms import oracle
 
     img = (rng.random((53, 47, 3)) * 255).astype(np.uint8)
     plan = make_plan((53, 47), 3.0)

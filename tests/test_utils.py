@@ -7,9 +7,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from blur_algorithms_tpu import Engine, blur_u8
-from blur_algorithms_tpu.utils import io
-from blur_algorithms_tpu.utils.timing import BenchResult, time_fn, time_fn_chained
+from blur_algorithms import Engine, blur_u8
+from blur_algorithms.utils import io
+from blur_algorithms.utils.timing import BenchResult, time_fn
 
 
 class TestIO:
@@ -50,39 +50,6 @@ class TestTiming:
         assert r.mpix_per_s and r.mpix_per_s > 0
         assert "t:" in str(r)
 
-    def test_time_fn_chained_shape_preserving(self):
-        r = time_fn_chained(lambda: (lambda x: x * 2.0), jnp.ones((8, 8)),
-                            iters=3, reps=2, name="c")
-        assert r.median_ms > 0
-
-    def test_time_fn_chained_suspect_on_swamped_delta(self, monkeypatch):
-        """A chained delta that stays <= 0 is remeasured (accumulating
-        mins) and, if unrecoverable, reported suspect instead of as a
-        bogus near-zero time (the sweep's 0.00 ms / 33 TP/s artifact)."""
-        from blur_algorithms_tpu.utils import timing as tmod
-
-        # scripted clock: every timed span measures the SAME duration, so
-        # tn - t1 == 0 forever -> all retries fire, suspect is set
-        t = {"now": 0.0}
-
-        def fake_clock():
-            t["now"] += 0.5
-            return t["now"]
-
-        monkeypatch.setattr(tmod.time, "perf_counter", fake_clock)
-        r = tmod.time_fn_chained(
-            lambda: (lambda x: x * 2.0), jnp.ones((8, 8)),
-            iters=3, reps=2, name="s",
-        )
-        assert r.suspect
-        assert "SUSPECT" in str(r)
-        assert r.iters == 3 * 2 * 4  # base reps + 3 retry rounds
-
-    def test_time_fn_chained_not_suspect_normally(self):
-        r = time_fn_chained(lambda: (lambda x: x * 2.0), jnp.ones((8, 8)),
-                            iters=3, reps=2, name="c")
-        assert not r.suspect
-
 
 class TestEdgeEngines:
     def test_fft_stream_u8_api_small(self, rng):
@@ -106,70 +73,61 @@ class TestPersistentCache:
         import jax
 
         jax.config.update("jax_compilation_cache_dir", None)
-        # the cache singleton binds to the first dir used in the process
+        # the cache binds to the first dir used in the process
         # (jax._src.compilation_cache: "initialization is done at most
-        # once") — drop it so each test really targets its own tmp dir.
-        # Private API: tolerate its absence in future jax releases (the
-        # config reset above still detaches the dir).
-        try:
-            from jax._src import compilation_cache as _cc
+        # once"); drop it so each test really targets its own directory
+        from jax._src import compilation_cache as _cc
 
-            _cc.reset_cache()
-        except (ImportError, AttributeError):
-            pass
+        _cc.reset_cache()
 
-    def test_enables_and_creates_dir(self, tmp_path):
+    def test_default_dir_is_fixed_inside_the_checkout(self):
+        from blur_algorithms.utils import cache
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert cache.DEFAULT_DIR == os.path.join(root, ".jax_cache")
+        with open(os.path.join(root, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
+
+    def test_default_dir_used_when_env_unset(self, monkeypatch):
         import jax
 
-        from blur_algorithms_tpu.utils.cache import enable_persistent_cache
+        from blur_algorithms.utils import cache
 
-        d = str(tmp_path / "xla_cache")
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         try:
-            got = enable_persistent_cache(d)
-            assert got == d
-            assert os.path.isdir(d)
-            assert jax.config.jax_compilation_cache_dir == d
+            assert cache.enable_persistent_cache() == cache.DEFAULT_DIR
+            assert os.path.isdir(cache.DEFAULT_DIR)
+            assert jax.config.jax_compilation_cache_dir == cache.DEFAULT_DIR
         finally:
             self._reset()
 
-    def test_env_opt_out(self, tmp_path, monkeypatch):
-        from blur_algorithms_tpu.utils.cache import enable_persistent_cache
+    def test_env_dir_honoured_and_no_other_set(self, tmp_path, monkeypatch):
+        import jax
 
-        monkeypatch.setenv("BLUR_TPU_NO_COMPILE_CACHE", "1")
-        assert enable_persistent_cache(str(tmp_path / "x")) is None
-        assert not (tmp_path / "x").exists()
-
-    def test_env_opt_out_is_affirmative(self, tmp_path, monkeypatch):
-        # =0 / empty do NOT disable (the documented convention is =1)
-        from blur_algorithms_tpu.utils.cache import enable_persistent_cache
-
-        monkeypatch.setenv("BLUR_TPU_NO_COMPILE_CACHE", "0")
-        d = str(tmp_path / "y")
-        try:
-            assert enable_persistent_cache(d) == d
-        finally:
-            self._reset()
-
-    def test_env_dir_override(self, tmp_path, monkeypatch):
-        from blur_algorithms_tpu.utils.cache import enable_persistent_cache
+        from blur_algorithms.utils.cache import enable_persistent_cache
 
         d = str(tmp_path / "via_env")
         monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", d)
+        self._reset()
         try:
             assert enable_persistent_cache() == d
+            # the directory is JAX's own reading of the variable
+            assert jax.config.jax_compilation_cache_dir in (None, d)
         finally:
             self._reset()
 
-    def test_compiled_program_persisted(self, tmp_path):
+    def test_compiled_program_persisted(self, tmp_path, monkeypatch):
         """A jitted program lands in the cache dir (min thresholds zeroed)."""
         import jax
 
-        from blur_algorithms_tpu.utils.cache import enable_persistent_cache
+        from blur_algorithms.utils.cache import enable_persistent_cache
 
         d = str(tmp_path / "xla_cache")
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         self._reset()  # detach from any dir an earlier test bound
         try:
-            assert enable_persistent_cache(d, min_compile_secs=0.0) == d
+            assert enable_persistent_cache(min_compile_secs=0.0)
+            jax.config.update("jax_compilation_cache_dir", d)
 
             @jax.jit
             def f(x):
